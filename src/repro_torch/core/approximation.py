@@ -1,0 +1,91 @@
+"""ε-approximation construction, step 2(a) (counterpart of
+repro.core.approximation, deterministic path).
+
+The deterministic quantile coreset: sort a player's shard by domain
+point and take, within each label class, the points at weighted
+quantile levels (j+½)/c± — an ε-approximation for the 1-D integer
+classes with no randomness.  Every function works over leading batch
+axes (tasks, players).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import fp32
+
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
+                     alive: torch.Tensor, c: int,
+                     order: torch.Tensor | None = None,
+                     y_sorted: torch.Tensor | None = None,
+                     alive_sorted: torch.Tensor | None = None,
+                     hmin: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-label weighted-quantile coreset: ``[..., m]`` inputs →
+    ``[..., c]`` local indices.  ``order``/``y_sorted``/
+    ``alive_sorted`` hoist the loop-invariant sort and gathers;
+    ``hmin`` ([...]) passes in the least alive hit count of each row
+    when the caller already has it (:func:`least_alive_hits`).
+
+    Floats follow the reference's rounding (core/fp32.py): the weights
+    are XLA's exp2(−shift) values and the prefix sums its scan order,
+    so the indices equal the reference's bit for bit.
+    """
+    m = x.shape[-1]
+    if order is None:
+        order = torch.argsort(x, dim=-1, stable=True)
+    ys = torch.gather(y, -1, order) if y_sorted is None else y_sorted
+    al = torch.gather(alive, -1, order) if alive_sorted is None \
+        else alive_sorted
+    hs = torch.gather(hits, -1, order)
+    if hmin is None:
+        hmin = least_alive_hits(hits, alive)
+    hmin = hmin[..., None]
+    # quantile levels are scale-free: weights relative to the lightest
+    # hit count, clipped so an all-dead row stays finite
+    p = torch.where(al, fp32.exp2_neg((hs - hmin).clamp(0, 126)), 0.0)
+    pos = ys > 0
+    p2 = torch.stack([torch.where(pos, p, 0.0), torch.where(pos, 0.0, p)],
+                     dim=-2)                                  # [..., 2, m]
+    cum = fp32.cumsum(p2)
+    w_pos, w_neg = cum[..., 0, -1:], cum[..., 1, -1:]          # [..., 1]
+    has_pos = (w_pos > 1e-12).to(torch.int32)
+    has_neg = (w_neg > 1e-12).to(torch.int32)
+    c_pos = torch.round(c * w_pos / torch.clamp(w_pos + w_neg, min=1e-30))
+    c_pos = torch.minimum(torch.maximum(c_pos.to(torch.int32), has_pos),
+                          c - has_neg)
+    j = torch.arange(c, dtype=torch.float32, device=x.device)
+    c_posf = torch.clamp(c_pos.float(), min=1.0)
+    c_negf = torch.clamp((c - c_pos).float(), min=1.0)
+    lvls = torch.stack([(j + 0.5) * w_pos / c_posf,
+                        (j - c_posf + 0.5) * w_neg / c_negf], dim=-2)
+    idx2 = torch.searchsorted(cum.contiguous(), lvls.contiguous())
+    idx2 = idx2.clamp(0, m - 1)
+    pos_sel = torch.arange(c, device=x.device) < c_pos
+    idx_sorted = torch.where(pos_sel, idx2[..., 0, :], idx2[..., 1, :])
+    return torch.gather(order, -1, idx_sorted)
+
+
+def least_alive_hits(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """min over alive examples of hits along the last axis (int32 max
+    for an all-dead row) — the max shift of the weights in log2 space."""
+    return torch.where(alive, hits, _I32_MAX).amin(dim=-1)
+
+
+def select_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
+                   alive: torch.Tensor, c: int, deterministic: bool,
+                   order: torch.Tensor | None = None,
+                   y_sorted: torch.Tensor | None = None,
+                   alive_sorted: torch.Tensor | None = None,
+                   hmin: torch.Tensor | None = None) -> torch.Tensor:
+    """Step 2(a) coreset indices.  The randomized (VC-sampling) coreset
+    needs the threefry key port and raises until then."""
+    if not deterministic:
+        raise NotImplementedError(
+            "the randomized coreset needs the threefry PRNG port, "
+            "ROADMAP queue 1, item 7")
+    return quantile_coreset(x, y, hits, alive, c, order=order,
+                            y_sorted=y_sorted, alive_sorted=alive_sorted,
+                            hmin=hmin)

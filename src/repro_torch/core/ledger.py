@@ -1,0 +1,78 @@
+"""Bit-exact communication accounting (counterpart of
+repro.core.ledger, coreset wire mode only).
+
+Theorem 4.1 charges, per BoostAttempt round: k coresets of
+``coreset_size`` examples at ``⌈log2 n⌉ + 1`` bits each (step 2(a)),
+k weight sums in fixed point (2(b)), one hypothesis broadcast to k
+players (2(d)) and the control bits of a stuck or halting attempt
+(2(e)).  The histogram and voting wire modes of the tree classes wait
+for the HistogramTrees slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+from repro_torch.core.types import BoostConfig, Ledger
+
+
+def domain_size(cls) -> int:
+    """|U| of a weak class (explicit ``n`` on the integer track)."""
+    return getattr(cls, "n", 1 << getattr(cls, "value_bits", 16))
+
+
+def point_bits(n: int) -> int:
+    return max(1, math.ceil(math.log2(max(n, 2))))
+
+
+def example_bits(n: int) -> int:
+    return point_bits(n) + 1                       # + label
+
+
+def weight_sum_bits(m: int, num_rounds: int) -> int:
+    """log2 W^(i) ∈ [−T, log2 m] in fixed point with ⌈log2 m⌉
+    fractional bits."""
+    return math.ceil(math.log2(max(num_rounds + math.log2(max(m, 2)), 2))) \
+        + math.ceil(math.log2(max(m, 2)))
+
+
+def boost_attempt_ledger(cfg: BoostConfig, cls, m: int, rounds: int,
+                         stuck: bool) -> Ledger:
+    """Exact bits of one BoostAttempt that produced ``rounds``
+    hypotheses (plus one stuck round if ``stuck``), all players alive."""
+    wire_rounds = rounds + (1 if stuck else 0)
+    return boost_attempt_ledger_masked(
+        cfg, cls, m, rounds, stuck, player_rounds=wire_rounds * cfg.k,
+        player_h_rounds=rounds * cfg.k, players_last=cfg.k)
+
+
+def boost_attempt_ledger_masked(cfg: BoostConfig, cls, m: int, rounds: int,
+                                stuck: bool, player_rounds: int,
+                                player_h_rounds: int,
+                                players_last: int) -> Ledger:
+    """:func:`boost_attempt_ledger` under a per-round player mask: only
+    bits alive players sent are charged.  ``player_rounds`` sums the
+    alive players over wire rounds, ``player_h_rounds`` over successful
+    rounds, ``players_last`` counts them at the final wire round."""
+    n = domain_size(cls)
+    T = cfg.num_rounds(m)
+    led = Ledger(attempts=1, rounds=rounds + (1 if stuck else 0))
+    led.bits_coresets = player_rounds * cfg.coreset_size * example_bits(n)
+    led.bits_weight_sums = player_rounds * weight_sum_bits(m, T)
+    led.bits_hypotheses = player_h_rounds * cls.hypothesis_bits()
+    led.bits_control = players_last * (1 if stuck else 0) + players_last
+    return led
+
+
+def theorem_41_bound(cfg: BoostConfig, cls, m: int, opt: int,
+                     constant: float = 1.0) -> float:
+    """O(OPT · k·log|S|·(d·log n + hyp + log|S|)) with an explicit
+    constant and the coreset size standing in for O(d/ε²)."""
+    n = domain_size(cls)
+    logm = math.log2(max(m, 2))
+    logn = math.log2(max(n, 2))
+    d = cls.vc_dim
+    per_attempt = cfg.k * (6 * logm + 1) * (
+        cfg.coreset_size * (logn + 1) / max(d, 1) * d
+        + cls.hypothesis_bits() + logm)
+    return constant * max(opt + 1, 1) * per_attempt
