@@ -2,14 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from this checkout's sources, holds
-each against its plain PyTorch version on the card, drives the port's
-main path — ``repro_torch.launch.serve --workload classify`` with the
-batched engine — at m = 2^20 examples per task, and checks the card's
-protocol outputs against the port's CPU run.  Prints the card, the
-kernels' numbers as one JSON line, and, last, one JSON object with
-``"ok": true``.  Any failed check exits non-zero before that line; so
-does a host with no CUDA device.  Imports nothing of JAX.
+Builds the hand-written kernels from this checkout's sources (one nvcc
+per source, all at once), holds each against its plain PyTorch version
+on the card, and drives the port's paths through
+``repro_torch.launch.serve --workload classify``:
+
+* the integer track — thresholds, B = 16 tasks of m = 2^20 examples;
+* the feature track — HistogramTrees (F = 8, depth 2, 32 bins, coreset
+  wire mode), B = 16 tasks of m = 2^16 examples;
+
+each with every kernel's launch count set to 0 just before and read
+just after.  Then the card's protocol outputs are checked against the
+port's CPU run on the three integer classes, on AxisStumps and on
+HistogramTrees in its three wire modes.  Prints the card, each phase's
+seconds, the kernels' numbers as one JSON line, and, last, one JSON
+object with ``"ok": true``.  Any failed check exits non-zero before
+that line; so does a host with no CUDA device.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -26,11 +35,20 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
 MAIN_ROWS, MAIN_MLOC = 64, 1 << 18  # B·k player rows × examples per player
 SLICE_ARGS = ["--workload", "classify", "--cls", "thresholds", "--batch",
               "16", "--m", str(1 << 20), "--k", "4", "--noise", "8",
               "--domain", "65536", "--coreset", "100", "--opt-budget",
               "16", "--device", "cuda"]
+TREE_ARGS = ["--workload", "classify", "--cls", "tree", "--features", "8",
+             "--tree-depth", "2", "--tree-bins", "32", "--comm-mode",
+             "coreset", "--batch", "16", "--m", str(1 << 16), "--k", "4",
+             "--noise", "8", "--coreset", "100", "--opt-budget", "16",
+             "--device", "cuda"]
+# histogram shapes of the tree slice: G tasks (or task·player pairs),
+# c points, N nodes, F features, Q bins
+HIST_MAIN = dict(G=16, N=2, c=400, F=8, Q=32)
 
 
 T0 = time.perf_counter()
@@ -91,13 +109,10 @@ def phase_kernel(ops) -> dict:
         torch.cuda.synchronize()
         rh, rw = ops.mw_update(hits, correct, alive, interpret=True)
         check(torch.equal(kh, rh), f"mw_update new_hits differ at [{R}, {m}]")
-        check(torch.allclose(kw, rw, rtol=1e-6, atol=0.0),
-              f"mw_update wsum outside rtol 1e-6 at [{R}, {m}]")
+        check(torch.equal(kw, rw), f"mw_update wsum not bitwise at [{R}, {m}]")
         err = (kw.double() - rw.double()).abs().max().item()
-        if i == 0:
-            max_abs = err
-        log(f"mw_update [{R}, {m}]: new_hits bitwise, wsum max_abs_err "
-              f"{err:.3e} (bitwise {torch.equal(kw, rw)})")
+        max_abs = max(max_abs, err)
+        log(f"mw_update [{R}, {m}]: new_hits and wsum bitwise")
     hits, correct, alive = mw_inputs(MAIN_ROWS, MAIN_MLOC, seed=0)
     kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive))
     plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
@@ -106,9 +121,9 @@ def phase_kernel(ops) -> dict:
     bytes_moved = n * (4 + 1 + 1 + 4) + MAIN_ROWS * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     log(f"mw_update main shape [{MAIN_ROWS}, {MAIN_MLOC}]: kernel_ms "
-          f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} bound_us "
-          f"{bound_ms * 1e3:.2f} ({bytes_moved} bytes) share_of_bound "
-          f"{bound_ms / kernel_ms:.3f}")
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} bound_us "
+        f"{bound_ms * 1e3:.2f} ({bytes_moved} bytes) share_of_bound "
+        f"{bound_ms / kernel_ms:.3f}")
     return {"name": "mw_update", "route": "cuda",
             "source": "src/repro_torch/kernels/mw_update/csrc/mw_update.cu",
             "replaces": "src/repro/kernels/mw_update/kernel.py:36",
@@ -116,59 +131,141 @@ def phase_kernel(ops) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
-def phase_slice(serve, ops, ledger) -> dict:
-    """The main path at full size; returns the serve JSON."""
-    from repro_torch.core.types import BoostConfig
+def hist_inputs(G, N, c, F, Q, seed, dyadic=False, edges=False):
+    """x [G, c, F], w/wy [G, N, c] on the card.  ``edges`` adds
+    zero-weight points, a zero-weight node and x outside [0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((G, c, F), generator=g, device="cuda")
+    if dyadic:
+        w = torch.ldexp(torch.ones((G, N, c), device="cuda"), -torch.randint(
+            0, 24, (G, N, c), generator=g, device="cuda"))
+    else:
+        w = torch.rand((G, N, c), generator=g, device="cuda") / c
+    if edges:
+        x = x * 1.6 - 0.3
+        x[0, 0, 0] = math.nan
+        x[-1, -1, -1] = math.inf
+        w[:, :, ::3] = 0.0
+        w[0, -1] = 0.0
+    flip = torch.rand((G, N, c), generator=g, device="cuda") < 0.5
+    return x, w, torch.where(flip, -w, w)
 
-    args = serve.build_parser().parse_args(SLICE_ARGS)
-    ops.launches = 0
+
+def phase_histogram(ops, ref) -> dict:
+    """The histogram kernel against its plain version, bitwise on both
+    outputs, at the tree slice's shapes and at ragged ones; returns its
+    JSON entry (without launches)."""
+    m = HIST_MAIN
+    cases = [dict(G=m["G"], N=1, c=m["c"], F=m["F"], Q=m["Q"]),
+             dict(G=m["G"], N=2, c=m["c"], F=m["F"], Q=m["Q"]),
+             dict(G=64, N=1, c=100, F=m["F"], Q=m["Q"]),
+             dict(G=64, N=2, c=100, F=m["F"], Q=m["Q"]),
+             dict(G=5, N=4, c=77, F=3, Q=8, edges=True),
+             dict(G=3, N=2, c=1000, F=3, Q=8, edges=True),
+             dict(G=2, N=2, c=300, F=40, Q=64, edges=True),
+             dict(G=16, N=2, c=400, F=8, Q=32, dyadic=True)]
+    for i, case in enumerate(cases):
+        x, w, wy = hist_inputs(seed=100 + i, **case)
+        Q = case["Q"]
+        kw, kwy = ops.node_histograms(x, w, wy, Q)
+        torch.cuda.synchronize()
+        rw, rwy = ops.node_histograms(x, w, wy, Q, interpret=True)
+        check(torch.equal(kw, rw) and torch.equal(kwy, rwy),
+              f"histogram differs from its plain version at {case}")
+        log(f"histogram {case}: hist_w and hist_wy bitwise (block "
+            f"{ref.xla_cpu_block(case['c'], case['N'])})")
+    G, N, c, F, Q = m["G"], m["N"], m["c"], m["F"], m["Q"]
+    x, w, wy = hist_inputs(G, N, c, F, Q, seed=7)
+    kernel_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q), reps=50,
+                        warm=5)
+    plain_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q,
+                                                   interpret=True), reps=20)
+    onehot = (ref.bin_index(x, Q)[..., None] == torch.arange(
+        Q, device="cuda")).float().reshape(G, c, F * Q)
+    both = torch.cat([w, wy], dim=1)                      # [G, 2N, c]
+    library_ms = time_ms(lambda: torch.matmul(both, onehot), reps=50,
+                         warm=5)
+    bytes_moved = 4 * (G * c * F + 2 * G * N * c + 2 * G * N * F * Q)
+    adds = 2 * G * N * c * F          # each point into one bin per feature
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"histogram main shape G={G} N={N} c={c} F={F} Q={Q}: kernel_ms "
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (torch.matmul, one-hot built outside) bound_us "
+        f"{bound_ms * 1e3:.4f} ({bytes_moved} bytes, {adds} adds)")
+    return {"name": "histogram", "route": "cuda",
+            "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
+            "replaces": "src/repro/kernels/histogram/kernel.py:106",
+            "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
+    """One path at full size through the serve entry point, every
+    kernel's count set to 0 just before and read just after; checks
+    E_S(f) ≤ planted noise and the ledger against Theorem 4.1 on every
+    task that finished.  Returns (serve JSON, result, launches)."""
+    args = serve.build_parser().parse_args(argv)
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     out, res, ts = serve.run_classify(args)
-    launches = ops.launches
-    log("slice:", json.dumps(out))
-    check(out["ok"] == args.batch, "a task exhausted its budget")
-    check(launches == res.steps and launches == out["kernel_launches"],
-          f"mw_update launches {launches} != engine steps {res.steps}")
-    cfg = BoostConfig(k=args.k, coreset_size=args.coreset,
-                      domain_size=args.domain, opt_budget=args.opt_budget)
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}:", json.dumps(out))
+    check(launches == out["kernel_launches"],
+          f"{name}: launch counts {launches} != {out['kernel_launches']}")
+    check(launches["mw_update"] == res.steps,
+          f"{name}: mw_update launches {launches['mw_update']} != engine "
+          f"steps {res.steps}")
+    cls = serve.make_class(args)
+    cfg = serve.make_config(args, cls)
     for b, task in enumerate(ts):
+        if not res.ok[b]:
+            log(f"{name} task {b}: exhausted its budget "
+                f"({int(res.attempts[b])} attempts)")
+            continue
         f = res.classifier(b)
         xs = torch.from_numpy(task.flat_x).cuda()
         errs = int((f(xs).cpu().numpy() != task.flat_y).sum())
         check(errs <= task.noise_count,
-              f"task {b}: E_S(f) = {errs} > planted noise {task.noise_count}")
+              f"{name} task {b}: E_S(f) = {errs} > planted noise "
+              f"{task.noise_count}")
         bits = res.ledger(b).total_bits
-        bound = ledger.theorem_41_bound(cfg, res.cls, args.m,
-                                        task.noise_count)
-        check(bits <= bound, f"task {b}: ledger {bits} > bound {bound}")
-        log(f"task {b}: attempts {int(res.attempts[b])} rounds "
-              f"{int(res.rounds[b])} E_S(f) {errs} <= noise "
-              f"{task.noise_count}; ledger {bits} <= theorem 4.1 bound "
-              f"{bound:.0f}")
-    log(f"slice: tasks_per_s {out['tasks_per_s']} wall_s {out['wall_s']} "
-          f"steps {res.steps} mw_update launches {launches}")
-    return out
+        bound = ledger.theorem_41_bound(cfg, cls, args.m, task.noise_count)
+        check(bits <= bound,
+              f"{name} task {b}: ledger {bits} > bound {bound}")
+        log(f"{name} task {b}: attempts {int(res.attempts[b])} rounds "
+            f"{int(res.rounds[b])} E_S(f) {errs} <= noise "
+            f"{task.noise_count}; ledger {bits} <= theorem 4.1 bound "
+            f"{bound:.0f}")
+    log(f"{name}: ok {out['ok']} of {args.batch}, tasks_per_s "
+        f"{out['tasks_per_s']} wall_s {out['wall_s']} steps {res.steps} "
+        f"ms/step {out['wall_s'] * 1e3 / max(res.steps, 1):.2f} launches "
+        f"{launches} max_memory_allocated {peak} bytes")
+    return out, res, launches
 
 
-def phase_profile(batched, serve) -> None:
-    """Where a step's time goes: a few engine rounds of the slice under
+def phase_profile(batched, serve, prng, tasks, argv, name,
+                  steps: int = 5) -> None:
+    """Where a step's time goes: a few engine rounds of a slice under
     torch.profiler — device kernel time against the host's wall time,
     and the kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import tasks, weak
-    from repro_torch.core.types import BoostConfig
-
-    args = serve.build_parser().parse_args(SLICE_ARGS)
-    cls = weak.make_class(args.cls, n=args.domain)
-    cfg = BoostConfig(k=args.k, coreset_size=args.coreset,
-                      domain_size=args.domain, opt_budget=args.opt_budget)
+    args = serve.build_parser().parse_args(argv)
+    cls = serve.make_class(args)
+    cfg = serve.make_config(args, cls)
     x, y, _ = tasks.make_batch(cls, args.batch, args.m, args.k, args.noise,
                                seed0=args.seed)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
-    s = batched.init_state(x, y, cfg, cls=cls, device="cuda")
+    keys = prng.split(prng.key(args.seed, device="cuda"), args.batch)
+    s = batched.init_state(x, y, keys, cfg, cls=cls, device="cuda")
     s = batched.run_rounds(s, x, y, cfg, cls, n=2)
     torch.cuda.synchronize()
-    steps = 5
     t0 = time.perf_counter()          # unprofiled: the profiler slows the host
     s = batched.run_rounds(s, x, y, cfg, cls, n=steps)
     torch.cuda.synchronize()
@@ -180,14 +277,14 @@ def phase_profile(batched, serve) -> None:
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not rows:
-        log(f"profile: wall_ms/step {wall_ms:.2f}; device time not "
+        log(f"profile {name}: wall_ms/step {wall_ms:.2f}; device time not "
             "measured (the profiler recorded no kernels)")
         return
     dev_us = sum(e.self_device_time_total for e in rows) / steps
     launches = sum(e.count for e in rows) / steps
-    log(f"profile: {steps} steps, wall_ms/step {wall_ms:.2f} (unprofiled), "
-        f"device_ms/step {dev_us / 1e3:.3f}, device busy share "
-        f"{dev_us / 1e3 / wall_ms:.3f}, kernels/step {launches:.0f}")
+    log(f"profile {name}: {steps} steps, wall_ms/step {wall_ms:.2f} "
+        f"(unprofiled), device_ms/step {dev_us / 1e3:.3f}, device busy "
+        f"share {dev_us / 1e3 / wall_ms:.3f}, kernels/step {launches:.0f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
             f"x{e.count / steps:5.0f}  {e.key[:90]}")
@@ -196,8 +293,11 @@ def phase_profile(batched, serve) -> None:
 def protocol_outputs(res, b: int) -> dict:
     """Task b's protocol outputs, the fields the parity bar holds
     bitwise, plus the final classifier's labels on S."""
+    if not res.ok[b]:
+        return {"ok": False, "attempts": int(res.attempts[b]),
+                "hist_stuck": res.hist_stuck[b].tobytes()}
     t = res.per_task(b)
-    x = torch.from_numpy(res.x[b].reshape(-1))
+    x = torch.from_numpy(res.x[b].reshape((-1,) + res.x.shape[3:]))
     return {"attempts": t.attempts, "rounds": t.rounds,
             "stuck": t.stuck_history,
             "hypotheses": t.hypotheses[:t.rounds].tobytes(),
@@ -206,22 +306,39 @@ def protocol_outputs(res, b: int) -> dict:
             "f_on_S": res.classifier(b)(x).numpy().tobytes()}
 
 
-def phase_card_vs_cpu(batched, tasks, weak) -> None:
+def phase_card_vs_cpu(batched, prng, tasks, weak) -> None:
     from repro_torch.core.types import BoostConfig
 
+    runs = []
     cfg = BoostConfig(k=4, coreset_size=100, domain_size=4096,
                       opt_budget=16)
     for name in ("thresholds", "intervals", "singletons"):
         cls = weak.make_class(name, n=4096)
-        x, y, _ = tasks.make_batch(cls, 4, 4096, 4, 3, seed0=7)
-        runs = {dev: batched.run_accurately_classify_batched(
-            x, y, cfg, cls, device=dev) for dev in ("cuda", "cpu")}
-        for b in range(4):
-            card, cpu = (protocol_outputs(runs[d], b) for d in ("cuda", "cpu"))
+        runs.append((name, cls, cfg, tasks.make_batch(cls, 4, 4096, 4, 3,
+                                                      seed0=7)))
+    cls = weak.make_class("stumps", num_features=4)
+    runs.append(("stumps", cls, BoostConfig(
+        k=2, coreset_size=64, domain_size=4096, opt_budget=8,
+        deterministic_coreset=False), tasks.make_batch(cls, 2, 128, 2, 1,
+                                                       seed0=3)))
+    for mode in ("coreset", "histogram", "voting"):
+        cls = weak.make_class("tree", num_features=4, tree_depth=2,
+                              tree_bins=8, tree_comm_mode=mode)
+        runs.append((f"tree/{mode}", cls, BoostConfig(
+            k=4, coreset_size=100, domain_size=4096, opt_budget=16,
+            deterministic_coreset=False), tasks.make_batch(
+                cls, 2, 256, 4, 2, seed0=3)))
+    for name, cls, cfg, (x, y, _) in runs:
+        B = x.shape[0]
+        res = {dev: batched.run_accurately_classify_batched(
+            x, y, prng.split(prng.key(5, device=dev), B), cfg, cls,
+            device=dev) for dev in ("cuda", "cpu")}
+        for b in range(B):
+            card, cpu = (protocol_outputs(res[d], b) for d in ("cuda", "cpu"))
             check(card == cpu, f"{name} task {b}: card and CPU protocol "
                   f"outputs differ in {[k for k in card if card[k] != cpu[k]]}")
-        log(f"card vs cpu, {name}: protocol outputs equal on 4 tasks "
-              f"({runs['cuda'].steps} steps)")
+        log(f"card vs cpu, {name}: protocol outputs equal on {B} tasks "
+            f"({res['cuda'].steps} steps, ok {int(res['cuda'].ok.sum())})")
 
 
 def main() -> int:
@@ -231,9 +348,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
-    from repro_torch.core import batched, ledger, tasks, weak
-    from repro_torch.kernels.mw_update import kernel, ops
+    from repro_torch.core import batched, ledger, prng, tasks, weak
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.kernels.histogram import ref as hist_ref
+    from repro_torch.kernels.mw_update import ops as mw_ops
     from repro_torch.launch import serve
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
 
     # 1. card
     card = subprocess.run(
@@ -242,22 +368,42 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-    # 2. build
+        f"python {sys.version.split()[0]}")
+    # 2. build every kernel, one nvcc each, all at once
     t0 = time.perf_counter()
-    lib, report = kernel.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        print(f"  ptxas: {line}")
-    # 3. kernel against its plain version
-    entry = phase_kernel(ops)
-    # 4. the slice at full size
-    entry["launches"] = phase_slice(serve, ops, ledger)["kernel_launches"]
-    phase_profile(batched, serve)
-    # 5. card against CPU
-    phase_card_vs_cpu(batched, tasks, weak)
-    # 6. results
-    print(json.dumps({"kernels": [entry]}))
+    built = _build.build_all([k.SOURCE for k, _ in serve.KERNELS.values()])
+    for lib, report, secs in built:
+        log(f"build: {lib.name} in {secs:.2f} s")
+        for line in report.splitlines():
+            print(f"  ptxas: {line}")
+    log(f"phase build: {time.perf_counter() - t0:.2f} s")
+    # 3. each kernel against its plain version
+    entries = {"mw_update": phase("mw_update", phase_kernel, mw_ops),
+               "histogram": phase("histogram", phase_histogram, hist_ops,
+                                  hist_ref)}
+    # 4. the integer-track path at full size
+    _, _, int_launches = phase("thresholds slice", phase_slice, serve,
+                               ledger, SLICE_ARGS, "thresholds slice")
+    check(int_launches["histogram"] == 0,
+          "the integer track launched the histogram kernel")
+    phase("thresholds profile", phase_profile, batched, serve, prng, tasks,
+          SLICE_ARGS, "thresholds", 3)
+    # 5. the tree path at full size: this slice's main path
+    _, res, launches = phase("tree slice", phase_slice, serve, ledger,
+                             TREE_ARGS, "tree slice")
+    depth = int(TREE_ARGS[TREE_ARGS.index("--tree-depth") + 1])
+    check(launches["histogram"] == depth * res.steps,
+          f"histogram launches {launches['histogram']} != depth {depth} x "
+          f"steps {res.steps}")
+    check(res.ok.any(), "no tree task finished")
+    phase("tree profile", phase_profile, batched, serve, prng, tasks,
+          TREE_ARGS, "tree", 5)
+    # 6. card against CPU
+    phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
+    # 7. results
+    for name, entry in entries.items():
+        entry["launches"] = launches[name]
+    print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,11 @@
 A JAX ``repro.core.batched.StepState`` arrives as a dict of numpy
 arrays (``jax.device_get(state)._asdict()``); the port's
 :class:`repro_torch.core.batched.StepState` holds the same fields as
-tensors, without the PRNG key words and with ``wsum``, recomputed from
-``hits`` and ``alive`` in the mw_update kernel's summation order.  A
-JAX run stopped after n rounds can so be finished by the port.  The
-data ``x``/``y`` stays plain numpy on both sides.
+tensors — the uint32 key words in int64 — plus ``wsum``, recomputed
+from ``hits`` and ``alive`` in the mw_update kernel's summation order.
+A JAX run stopped after n rounds can so be finished by the port, and
+the other way round.  The data ``x``/``y`` stays plain numpy on both
+sides.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.mw_update import ops as mw_ops
 
 
-
 def from_jax(leaves: dict, device=None) -> batched.StepState:
     """Port state from a JAX StepState's numpy leaves."""
     dev = resolve_device(device)
@@ -28,8 +28,14 @@ def from_jax(leaves: dict, device=None) -> batched.StepState:
             raise ValueError(f"state leaf {name!r} has dtype "
                              f"{np.asarray(leaves[name]).dtype}, the engine "
                              f"expects {want}: refusing a silent cast")
-    fields = {f: torch.as_tensor(np.array(leaves[f]), device=dev)
-              for f in batched.StepState._fields if f != "wsum"}
+    fields = {}
+    for f in batched.StepState._fields:
+        if f == "wsum":
+            continue
+        v = np.array(leaves[f])
+        if f in batched.KEY_FIELDS:
+            v = v.astype(np.int64)
+        fields[f] = torch.as_tensor(v, device=dev)
     hits, alive = fields["hits"], fields["alive"]
     B, k, mloc = hits.shape
     _, wsum = mw_ops.mw_update(hits.reshape(B * k, mloc),
@@ -38,15 +44,13 @@ def from_jax(leaves: dict, device=None) -> batched.StepState:
     return batched.StepState(**fields, wsum=wsum.reshape(B, k))
 
 
-def to_jax(state: batched.StepState, key_data=None,
-           akey_data=None) -> dict:
-    """JAX StepState leaves (numpy) from port state.  The key words the
-    port does not carry come from the caller (the integer track reads
-    none of them; zeros when omitted)."""
-    out = {f: v.cpu().numpy() for f, v in state._asdict().items()
-           if f != "wsum"}
-    B = out["attempt"].shape[0]
-    zeros = np.zeros((B, 2), np.uint32)
-    out["key_data"] = zeros if key_data is None else np.asarray(key_data)
-    out["akey_data"] = zeros if akey_data is None else np.asarray(akey_data)
+def to_jax(state: batched.StepState) -> dict:
+    """JAX StepState leaves (numpy) from port state, key words as
+    uint32."""
+    out = {}
+    for f, v in state._asdict().items():
+        if f == "wsum":
+            continue
+        v = v.cpu().numpy()
+        out[f] = v.astype(np.uint32) if f in batched.KEY_FIELDS else v
     return out

@@ -1,2 +1,2 @@
 """The protocol: weak learners, BoostAttempt, AccuratelyClassify and
-the batched stepping engine (integer track)."""
+the batched stepping engine (integer and feature tracks)."""

@@ -1,20 +1,32 @@
 """ε-approximation construction, step 2(a) (counterpart of
-repro.core.approximation, deterministic path).
+repro.core.approximation).
 
-The deterministic quantile coreset: sort a player's shard by domain
-point and take, within each label class, the points at weighted
-quantile levels (j+½)/c± — an ε-approximation for the 1-D integer
-classes with no randomness.  Every function works over leading batch
-axes (tasks, players).
+Two constructions, as in the reference:
+
+* the deterministic quantile coreset — sort a player's shard by domain
+  point and take, within each label class, the points at weighted
+  quantile levels (j+½)/c± (the 1-D integer classes);
+* the randomized coreset — c i.i.d. draws from p_t by Gumbel-max over
+  threefry keys (:mod:`repro_torch.core.prng`), the draws bit-equal to
+  ``jax.random.gumbel`` (the feature-track classes).
+
+Every function works over leading batch axes (tasks, players).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.core import fp32
+from repro_torch.core import fp32, prng
+from repro_torch.core import weights as W
+from repro_torch.core.pinned import pinned_argmax
 
 _I32_MAX = torch.iinfo(torch.int32).max
+# Gumbel entries drawn at once by sampled_coreset (int64 temporaries of
+# the threefry hash are 8 bytes each): bounds the draw's peak memory
+DRAW_CHUNK = 1 << 25
 
 
 def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
@@ -74,18 +86,64 @@ def least_alive_hits(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return torch.where(alive, hits, _I32_MAX).amin(dim=-1)
 
 
+def sampled_coreset(keys: torch.Tensor, hits: torch.Tensor,
+                    alive: torch.Tensor, c: int,
+                    log_wsum: torch.Tensor) -> torch.Tensor:
+    """Randomized coreset: c i.i.d. draws from p_t per row.
+
+    ``keys`` [..., 2] one key per row; ``hits``/``alive`` [..., m];
+    ``log_wsum`` [...] each row's log2 weight sum.  Returns [..., c]
+    int64 local indices: Gumbel-max over ``gumbel(key, (c, m))`` plus
+    the natural-log probabilities, the winner pinned to the lowest
+    index as in the reference.  An all-dead row has NaN logits and
+    yields index m, one past the row, exactly as the reference does
+    (its gather then fills, see :func:`gather_fill`).  The draw is
+    made in chunks of rows of at most :data:`DRAW_CHUNK` entries;
+    the bits do not depend on the chunking.
+    """
+    m = hits.shape[-1]
+    logp = W.normalized_log_probs(hits, alive, log_wsum) * fp32.LN2
+    rows = max(1, DRAW_CHUNK // max(1, logp.numel()))
+    out = []
+    for r0 in range(0, c, rows):
+        n = min(rows, c - r0)
+        g = prng.gumbel(keys, (c, m), start=r0 * m, count=n * m)
+        g = g.reshape(keys.shape[:-1] + (n, m))
+        out.append(pinned_argmax(g + logp[..., None, :], dim=-1))
+    return torch.cat(out, dim=-1)
+
+
+def gather_fill(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v`` [..., m(, F)] gathered at ``idx`` [..., c] along the m
+    axis, with the reference's out-of-bounds fill (``jnp.take_along_
+    axis``): an index ≥ m reads NaN for floats and the type's minimum
+    for integers."""
+    m = v.shape[idx.ndim - 1]
+    oob = idx >= m
+    safe = idx.clamp(max=m - 1)
+    if v.ndim > idx.ndim:                               # feature rows
+        safe = safe[..., None].expand(idx.shape + v.shape[idx.ndim:])
+        oob = oob[..., None]
+    out = torch.gather(v, idx.ndim - 1, safe)
+    fill = (math.nan if torch.is_floating_point(v)
+            else torch.iinfo(v.dtype).min)
+    return torch.where(oob, torch.tensor(fill, dtype=v.dtype,
+                                         device=v.device), out)
+
+
 def select_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
                    alive: torch.Tensor, c: int, deterministic: bool,
                    order: torch.Tensor | None = None,
                    y_sorted: torch.Tensor | None = None,
                    alive_sorted: torch.Tensor | None = None,
-                   hmin: torch.Tensor | None = None) -> torch.Tensor:
-    """Step 2(a) coreset indices.  The randomized (VC-sampling) coreset
-    needs the threefry key port and raises until then."""
+                   hmin: torch.Tensor | None = None,
+                   keys: torch.Tensor | None = None,
+                   log_wsum: torch.Tensor | None = None) -> torch.Tensor:
+    """Step 2(a) coreset indices: the quantile coreset when
+    ``deterministic``, else :func:`sampled_coreset` under ``keys``
+    with the rows' ``log_wsum``."""
     if not deterministic:
-        raise NotImplementedError(
-            "the randomized coreset needs the threefry PRNG port, "
-            "ROADMAP queue 1, item 7")
+        return sampled_coreset(keys, hits, alive, c, log_wsum)
     return quantile_coreset(x, y, hits, alive, c, order=order,
                             y_sorted=y_sorted, alive_sorted=alive_sorted,
                             hmin=hmin)

@@ -1,5 +1,5 @@
 """Batched AccuratelyClassify engine, round-steppable (counterpart of
-repro.core.batched, integer track).
+repro.core.batched).
 
 B independent tasks advance together, one wire round per step:
 
@@ -15,11 +15,18 @@ bit (tests/test_torch_batched.py).  Where the reference runs a
 ``while_loop`` on the device, the port runs a Python loop over steps
 and checks ``any(active)`` on the host, one small sync per round.
 
+Tasks are int32 points [B, k, mloc] (the integer track, quantile
+coreset) or float32 feature rows [B, k, mloc, F] (AxisStumps and
+HistogramTrees, randomized coreset).  Keys are threefry words
+(:mod:`repro_torch.core.prng`) carried on the state's device: the task
+key splits at every attempt start, the attempt key at every round, as
+in the reference.
+
 Differences from the reference's state, all deliberate:
 
-* no PRNG key words (``key_data``/``akey_data``): the integer track
-  reads no randomness, and the feature-track slice adds the threefry
-  key words back;
+* ``key_data``/``akey_data`` hold the uint32 key words in int64
+  tensors (torch has no full uint32 arithmetic); ``repro_torch.convert``
+  restores uint32 at the boundary;
 * ``wsum`` [B, k] float32 — each player's Σ_alive 2^−hits, the weight
   sum of the next round's step 2(b), as the mw_update kernel returns
   it (the reference recomputes it from ``hits`` every round).
@@ -33,7 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import boost_attempt, classify, fp32, streaming, weak
+from repro_torch.core import (boost_attempt, classify, fp32, prng,
+                              streaming, weak)
 from repro_torch.core import ledger as L
 from repro_torch.core import weights as W
 from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
@@ -52,6 +60,7 @@ class StepState(NamedTuple):
     done: torch.Tensor              # bool  some attempt succeeded
     alive: torch.Tensor             # [k, mloc] current alive-example mask
     disputed: torch.Tensor          # [k, mloc] quarantined-example mask
+    key_data: torch.Tensor          # [2] task key words (int64)
     h_params: torch.Tensor          # [t_buf, P] winning ensemble
     rounds: torch.Tensor            # int32 rounds of the winning attempt
     min_loss: torch.Tensor          # last center ERM loss (diagnostic)
@@ -64,26 +73,31 @@ class StepState(NamedTuple):
     hist_players_last: torch.Tensor  # [A] alive players at last round
     # -- in-attempt -------------------------------------------------------
     in_attempt: torch.Tensor        # bool  an attempt is in flight
+    akey_data: torch.Tensor         # [2] this attempt's round key words
     t: torch.Tensor                 # int32 hypotheses this attempt
     bound: torch.Tensor             # int32 this attempt's round bound
     hits: torch.Tensor              # [k, mloc] MW state
     wsum: torch.Tensor              # [k] Σ_alive 2^−hits (port only)
     cur_h: torch.Tensor             # [t_buf, P] growing ensemble
-    core_x: torch.Tensor            # [k, c] last round's pooled coreset
+    core_x: torch.Tensor            # [k, c(, F)] last round's coreset
     core_y: torch.Tensor            # [k, c]
     step: torch.Tensor              # int32 global wire-round counter
 
 
+# the reference's layout (key words uint32 at the boundary; int64 in
+# the port's tensors), plus the port's wsum
 STATE_DTYPES = {
     "attempt": "int32", "done": "bool", "alive": "bool",
-    "disputed": "bool", "h_params": "float32", "rounds": "int32",
-    "min_loss": "float32", "hist_stuck": "bool", "hist_rounds": "int32",
-    "hist_alive": "int32", "hist_p": "int32", "hist_players": "int32",
-    "hist_players_h": "int32", "hist_players_last": "int32",
-    "in_attempt": "bool", "t": "int32", "bound": "int32",
+    "disputed": "bool", "key_data": "uint32", "h_params": "float32",
+    "rounds": "int32", "min_loss": "float32", "hist_stuck": "bool",
+    "hist_rounds": "int32", "hist_alive": "int32", "hist_p": "int32",
+    "hist_players": "int32", "hist_players_h": "int32",
+    "hist_players_last": "int32", "in_attempt": "bool",
+    "akey_data": "uint32", "t": "int32", "bound": "int32",
     "hits": "int32", "wsum": "float32", "cur_h": "float32",
     "step": "int32",
 }
+KEY_FIELDS = ("key_data", "akey_data")
 
 
 def num_rounds_dynamic(cfg: BoostConfig, m_alive: torch.Tensor) -> torch.Tensor:
@@ -123,22 +137,42 @@ def as_tensor(v, device) -> torch.Tensor:
     return v.to(device)
 
 
-def init_state(x, y, cfg: BoostConfig, alive=None, t_buf: int | None = None,
-               cls=None, device=None) -> StepState:
-    """Fresh protocol state for a [B, k, mloc] int32 batch.
+def task_keys(keys, B: int, device) -> torch.Tensor:
+    """[B, 2] task key words from one key [2] (split into B, as the
+    reference splits a single key) or B keys [B, 2] (tensor or uint32
+    words)."""
+    keys = prng.wrap_key_data(keys).to(device)
+    if keys.ndim == 1:
+        keys = prng.split(keys, B)
+    if tuple(keys.shape) != (B, 2):
+        raise ValueError(f"need {B} task keys [B, 2], got "
+                         f"{tuple(keys.shape)}")
+    return keys
 
-    ``y`` [B, k, mloc] int8 ±1; ``alive`` optional [B, k, mloc] bool
-    (False = padding); ``t_buf`` ensemble-buffer rounds (default
-    ``cfg.num_rounds(k·mloc)``).  Raises for shards whose round bound
+
+def init_state(x, y, keys, cfg: BoostConfig, alive=None,
+               t_buf: int | None = None, cls=None,
+               device=None) -> StepState:
+    """Fresh protocol state for a batch of B tasks.
+
+    ``x`` [B, k, mloc] int32 points or [B, k, mloc, F] float32 feature
+    rows; ``y`` [B, k, mloc] int8 ±1; ``keys`` [B, 2] task key words
+    (or one key to split); ``alive`` optional [B, k, mloc] bool (False
+    = padding); ``t_buf`` ensemble-buffer rounds (default
+    ``cfg.num_rounds(k·mloc)``); ``cls`` sizes the ensemble buffers
+    (:func:`weak.param_dim`).  Raises for shards whose round bound
     exceeds 126 (m > 2^21 per task): the carried weight sum is exact in
     range only up to there, and larger m needs the streaming slice
     (ROADMAP queue 1, item 10).
     """
     dev = resolve_device(device)
     x = as_tensor(x, dev)
-    B, k, mloc = x.shape
-    if x.dtype != torch.int32:
-        raise TypeError("the integer track takes int32 points [B, k, mloc]")
+    B, k, mloc = x.shape[:3]
+    if not ((x.ndim == 3 and x.dtype == torch.int32)
+            or (x.ndim == 4 and x.dtype == torch.float32)):
+        raise TypeError("the engine takes int32 points [B, k, mloc] or "
+                        "float32 feature rows [B, k, mloc, F]")
+    kd = task_keys(keys, B, dev)
     if t_buf is None:
         t_buf = cfg.num_rounds(k * mloc)
     if max(t_buf, cfg.num_rounds(k * mloc)) > MAX_ROUNDS:
@@ -163,16 +197,17 @@ def init_state(x, y, cfg: BoostConfig, alive=None, t_buf: int | None = None,
 
     return StepState(
         attempt=i32(B), done=b8(B), alive=alive,
-        disputed=torch.zeros_like(alive),
+        disputed=torch.zeros_like(alive), key_data=kd,
         h_params=f32(B, t_buf, p_dim), rounds=i32(B), min_loss=f32(B),
         hist_stuck=b8(B, a_max), hist_rounds=i32(B, a_max),
         hist_alive=i32(B, a_max), hist_p=i32(B, a_max),
         hist_players=i32(B, a_max), hist_players_h=i32(B, a_max),
         hist_players_last=i32(B, a_max),
-        in_attempt=b8(B), t=i32(B), bound=i32(B),
-        hits=W.init_hits((B, k, mloc), device=dev), wsum=f32(B, k),
-        cur_h=f32(B, t_buf, p_dim),
-        core_x=torch.zeros((B, k, c), dtype=x.dtype, device=dev),
+        in_attempt=b8(B), akey_data=torch.zeros_like(kd), t=i32(B),
+        bound=i32(B), hits=W.init_hits((B, k, mloc), device=dev),
+        wsum=f32(B, k), cur_h=f32(B, t_buf, p_dim),
+        core_x=torch.zeros((B, k, c) + tuple(x.shape[3:]), dtype=x.dtype,
+                           device=dev),
         core_y=torch.zeros((B, k, c), dtype=torch.int8, device=dev),
         step=i32(B))
 
@@ -193,12 +228,15 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
               s: StepState) -> StepState:
     """ONE wire round of every task (the reference's vmapped step)."""
     a_max = cfg.opt_budget + 1
-    B, k, _ = x.shape
+    B, k = x.shape[:2]
     rows = torch.arange(B, device=x.device)
     active = _active(s, a_max)
     pa = sched[rows, s.step.clamp(max=sched.shape[1] - 1).long()]   # [B, k]
     # ---- attempt start (no-op when one is already in flight) ----------
     start = ~s.in_attempt
+    nk_sub = prng.split(s.key_data, 2)
+    key_data = torch.where(start[:, None], nk_sub[:, 0], s.key_data)
+    akey_data = torch.where(start[:, None], nk_sub[:, 1], s.akey_data)
     m_alive = (s.alive & pa[:, :, None]).sum(dim=(1, 2), dtype=torch.int32)
     a = s.attempt
     a_idx = a.clamp(max=a_max - 1).long()
@@ -209,11 +247,12 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
     t = torch.where(start, 0, s.t)
     hist_alive = _set_at(s.hist_alive, a_idx, m_alive, start)
     # ---- one BoostAttempt round ----------------------------------------
-    alive_sorted = torch.gather(s.alive, -1, x_orders)
+    alive_sorted = (None if x_orders is None
+                    else torch.gather(s.alive, -1, x_orders))
     carry = boost_attempt._Carry(
         t=t, stuck=torch.zeros_like(start), hits=hits, wsum=wsum,
         h_params=cur_h, core_x=s.core_x, core_y=s.core_y,
-        min_loss=s.min_loss)
+        min_loss=s.min_loss, key=akey_data)
     out = boost_attempt._round_body(
         cfg, cls, x, y, s.alive, x_orders, y_sorted, alive_sorted, carry,
         player_alive=pa, active=active)
@@ -222,7 +261,7 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
     ended = stuck | success
     k_alive = pa.sum(dim=-1, dtype=torch.int32)
     # ---- full-point quarantine, masked to the round's senders ---------
-    core_flat = out.core_x.reshape(B, -1)
+    core_flat = out.core_x.reshape((B, -1) + tuple(out.core_x.shape[3:]))
     valid_flat = pa.repeat_interleave(cfg.coreset_size, dim=1)
     masked_flat = classify.mask_invalid_points(core_flat, valid_flat)
     dead_new = (s.alive & classify.match_points(x, masked_flat)
@@ -237,6 +276,7 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
         done=s.done | success,
         alive=s.alive & ~dead_new,
         disputed=s.disputed | dead_new,
+        key_data=key_data,
         h_params=torch.where(success[:, None, None], out.h_params,
                              s.h_params),
         rounds=torch.where(success, out.t, s.rounds),
@@ -250,6 +290,7 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
         hist_players_last=_set_at(s.hist_players_last, a_idx, k_alive,
                                   always),
         in_attempt=~ended,
+        akey_data=out.key,
         t=out.t, bound=bound, hits=out.hits, wsum=out.wsum,
         cur_h=out.h_params, core_x=out.core_x, core_y=out.core_y,
         step=s.step + 1)
@@ -264,8 +305,10 @@ def _run_steps(x, y, sched, state: StepState, n: int | None,
     """Advance every active task by up to ``n`` rounds; returns the
     state and the number of steps run."""
     a_max = cfg.opt_budget + 1
-    x_orders = streaming.sort_order(x, cfg.chunk_size, cfg.domain_size)
-    y_sorted = torch.gather(y, -1, x_orders)
+    x_orders = y_sorted = None
+    if boost_attempt.is_quantile_track(cfg, x):
+        x_orders = streaming.sort_order(x, cfg.chunk_size, cfg.domain_size)
+        y_sorted = torch.gather(y, -1, x_orders)
     steps = 0
     while (n is None or steps < n) and bool(_active(state, a_max).any()):
         state = _one_step(cfg, cls, x, y, x_orders, y_sorted, sched, state)
@@ -278,8 +321,8 @@ def run_rounds(state: StepState, x, y, cfg: BoostConfig, cls,
     """Advance the protocol by up to ``n`` wire rounds (None = to
     completion, 0 = no-op) on the state's device.
 
-    ``x``/``y`` are the SAME [B, k, mloc] arrays the state was built
-    from; ``player_sched`` an optional [R, k] or [B, R, k] player-alive
+    ``x``/``y`` are the SAME [B, k, mloc(, F)] / [B, k, mloc] arrays
+    the state was built from; ``player_sched`` an optional [R, k] or [B, R, k] player-alive
     schedule.  Any slicing gives the same final state as one call.
     """
     dev = state.hits.device
@@ -395,23 +438,26 @@ def finalize(state: StepState, x, y, alive0, cfg: BoostConfig, cls,
         steps=steps)
 
 
-def run_accurately_classify_batched(x, y, cfg: BoostConfig, cls, alive=None,
-                                    m_true=None, player_sched=None,
+def run_accurately_classify_batched(x, y, keys, cfg: BoostConfig, cls,
+                                    alive=None, m_true=None,
+                                    player_sched=None,
                                     device=None) -> BatchedClassifyResult:
     """B-task AccuratelyClassify to completion on ``device`` (default
     ``cuda``; raises when CUDA is absent unless ``device="cpu"``).
 
-    x, y: [B, k, mloc] int32 shards and int8 labels (numpy or
-    tensors); ``alive`` optional initial mask; ``m_true`` optional [B]
+    x, y: [B, k, mloc] int32 shards or [B, k, mloc, F] float32 feature
+    rows, and int8 labels (numpy or tensors); ``keys``: [B, 2] task
+    key words, or one key [2] to split into B (as the reference takes
+    one key or B); ``alive`` optional initial mask; ``m_true`` optional [B]
     true sample sizes (padded buckets); ``player_sched`` an optional
     player-alive schedule (see :func:`canon_player_sched`).
     """
-    state = init_state(x, y, cfg, alive=alive, cls=cls, device=device)
+    state = init_state(x, y, keys, cfg, alive=alive, cls=cls, device=device)
     dev = state.hits.device
     xt, yt = as_tensor(x, dev), as_tensor(y, dev)
     sched = canon_player_sched(player_sched, xt.shape[0], xt.shape[1],
                                device=dev)
     state, steps = _run_steps(xt, yt, sched, state, None, cfg, cls)
-    alive0 = np.ones(tuple(xt.shape), bool) if alive is None else alive
+    alive0 = np.ones(tuple(xt.shape[:3]), bool) if alive is None else alive
     return finalize(state, x, y, alive0, cfg, cls, m_true=m_true,
                     steps=steps)

@@ -121,6 +121,7 @@ _LOG_Q2 = _f32(0.693359375)
 _SQRTHF = _f32(0.707106781186547524)
 _MIN_NORM = _f32(1.17549435e-38)
 _LN2 = _f32(math.log(2.0))
+LN2 = _LN2                    # ln 2 rounded to float32
 # XLA folds x / ln 2 into x · (1/ln 2), the reciprocal rounded to float32
 _INV_LN2 = float(np.float32(1.0) / np.float32(_LN2))
 

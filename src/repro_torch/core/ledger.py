@@ -1,12 +1,14 @@
 """Bit-exact communication accounting (counterpart of
-repro.core.ledger, coreset wire mode only).
+repro.core.ledger).
 
 Theorem 4.1 charges, per BoostAttempt round: k coresets of
 ``coreset_size`` examples at ``⌈log2 n⌉ + 1`` bits each (step 2(a)),
 k weight sums in fixed point (2(b)), one hypothesis broadcast to k
 players (2(d)) and the control bits of a stuck or halting attempt
-(2(e)).  The histogram and voting wire modes of the tree classes wait
-for the HistogramTrees slice.
+(2(e)).  The histogram trees' distributed wire modes replace the
+per-round coresets with per-player histograms or votes (examples cross
+the wire only on a stuck round).  ``collective_sites_per_round`` comes
+with the sharded engine (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from repro_torch.core.types import BoostConfig, Ledger
 
 
 def domain_size(cls) -> int:
-    """|U| of a weak class (explicit ``n`` on the integer track)."""
+    """|U| of a weak class: explicit ``n`` (integer track) or the
+    2^value_bits grid of the feature track."""
     return getattr(cls, "n", 1 << getattr(cls, "value_bits", 16))
 
 
@@ -34,6 +37,40 @@ def weight_sum_bits(m: int, num_rounds: int) -> int:
     fractional bits."""
     return math.ceil(math.log2(max(num_rounds + math.log2(max(m, 2)), 2))) \
         + math.ceil(math.log2(max(m, 2)))
+
+
+def tree_comm_mode(cls) -> str:
+    """The class's split-finding exchange mode ("coreset" for every
+    class without one)."""
+    return getattr(cls, "comm_mode", "coreset")
+
+
+def hist_scalars_per_player(cls) -> int:
+    """Histogram scalars one player ships per round: 2·nodes·F·Q in
+    histogram mode, 2·nodes·elected·Q in voting mode."""
+    mode = tree_comm_mode(cls)
+    if mode == "histogram":
+        return 2 * cls.nodes * cls.num_features * cls.bins
+    if mode == "voting":
+        return 2 * cls.nodes * cls.elected * cls.bins
+    return 0
+
+
+def vote_entries_per_player(cls) -> int:
+    """Vote proposals one player ships per round: top-k per node."""
+    if tree_comm_mode(cls) == "voting":
+        return cls.nodes * cls.vote_topk
+    return 0
+
+
+def histogram_cell_bits(m: int, num_rounds: int) -> int:
+    """One histogram scalar on the wire: a weight sum's fixed point."""
+    return weight_sum_bits(m, num_rounds)
+
+
+def vote_entry_bits(cls, m: int, num_rounds: int) -> int:
+    """One vote proposal: (feature id, bin edge, gain)."""
+    return cls.feat_bits + cls.bin_bits + weight_sum_bits(m, num_rounds)
 
 
 def boost_attempt_ledger(cfg: BoostConfig, cls, m: int, rounds: int,
@@ -57,7 +94,18 @@ def boost_attempt_ledger_masked(cfg: BoostConfig, cls, m: int, rounds: int,
     n = domain_size(cls)
     T = cfg.num_rounds(m)
     led = Ledger(attempts=1, rounds=rounds + (1 if stuck else 0))
-    led.bits_coresets = player_rounds * cfg.coreset_size * example_bits(n)
+    if tree_comm_mode(cls) == "coreset":
+        led.bits_coresets = (player_rounds * cfg.coreset_size
+                             * example_bits(n))
+    else:
+        # only the stuck round ships examples, from the players alive
+        # at it (the attempt's final wire round)
+        led.bits_coresets = (players_last * cfg.coreset_size
+                             * example_bits(n) if stuck else 0)
+        led.bits_histograms = (player_rounds * hist_scalars_per_player(cls)
+                               * histogram_cell_bits(m, T))
+        led.bits_votes = (player_rounds * vote_entries_per_player(cls)
+                          * vote_entry_bits(cls, m, T))
     led.bits_weight_sums = player_rounds * weight_sum_bits(m, T)
     led.bits_hypotheses = player_h_rounds * cls.hypothesis_bits()
     led.bits_control = players_last * (1 if stuck else 0) + players_last
@@ -72,7 +120,15 @@ def theorem_41_bound(cfg: BoostConfig, cls, m: int, opt: int,
     logm = math.log2(max(m, 2))
     logn = math.log2(max(n, 2))
     d = cls.vc_dim
+    T = cfg.num_rounds(m)
+    # distributed tree growth swaps the per-round coresets for
+    # histograms/votes; the bound keeps both terms
+    mode_payload = (hist_scalars_per_player(cls)
+                    * histogram_cell_bits(m, T)
+                    + vote_entries_per_player(cls)
+                    * vote_entry_bits(cls, m, T)
+                    if tree_comm_mode(cls) != "coreset" else 0)
     per_attempt = cfg.k * (6 * logm + 1) * (
         cfg.coreset_size * (logn + 1) / max(d, 1) * d
-        + cls.hypothesis_bits() + logm)
+        + cls.hypothesis_bits() + logm + mode_payload)
     return constant * max(opt + 1, 1) * per_attempt

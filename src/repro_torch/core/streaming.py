@@ -13,8 +13,9 @@ import torch
 
 def sort_order(x: torch.Tensor, chunk_size: int | None = None,
                n: int | None = None) -> torch.Tensor:
-    """Stable argsort over the last axis (ties lower index first),
-    equal to ``jnp.argsort``.  ``n`` is accepted for signature parity
+    """Stable argsort over the last axis (ties lower index first), of
+    int32 points or float32 columns (NaN last), equal to
+    ``jnp.argsort``.  ``n`` is accepted for signature parity
     with the reference; a set ``chunk_size`` raises."""
     del n
     if chunk_size is not None:

@@ -1,5 +1,6 @@
 """Synthetic learning tasks for the protocol track (counterpart of
-repro.core.tasks, without scenarios).
+repro.core.tasks, without scenarios, which wait for ROADMAP queue 1,
+item 11).
 
 The same numpy RNG calls in the same order as the reference, so the
 same seeds give identical arrays: a sample labelled by a random target
@@ -18,7 +19,7 @@ import torch
 
 @dataclasses.dataclass
 class Task:
-    x: np.ndarray            # [k, m_loc] int32
+    x: np.ndarray            # [k, m_loc] int32 or [k, m_loc, F] float32
     y: np.ndarray            # [k, m_loc] int8 ±1
     target_params: np.ndarray
     noise_count: int         # flipped labels (OPT ≤ this)
@@ -26,7 +27,7 @@ class Task:
 
     @property
     def flat_x(self):
-        return self.x.reshape(-1)
+        return self.x.reshape((-1,) + self.x.shape[2:])
 
     @property
     def flat_y(self):
@@ -37,10 +38,12 @@ def _split(rng, x, y, k, adversarial=True):
     m = x.shape[0]
     if m % k:
         raise ValueError(f"sample size {m} must divide among k={k} players")
-    order = (np.argsort(x, kind="stable") if adversarial
-             else rng.permutation(m))
+    if adversarial:
+        order = np.argsort(x if x.ndim == 1 else x[:, 0], kind="stable")
+    else:
+        order = rng.permutation(m)
     x, y = x[order], y[order]
-    return x.reshape(k, m // k), y.reshape(k, m // k)
+    return x.reshape((k, m // k) + x.shape[1:]), y.reshape(k, m // k)
 
 
 def make_task(cls, m: int, k: int, noise: int, seed: int = 0,
@@ -63,9 +66,13 @@ def make_task(cls, m: int, k: int, noise: int, seed: int = 0,
 
 
 def make_batch(cls, B: int, m: int, k: int, noise: int, seed0: int = 0,
-               adversarial_split: bool = True):
+               adversarial_split: bool = True, scenario: str | None = None):
     """B independent tasks stacked for the batched engine: (x [B, k,
-    m/k], y [B, k, m/k], tasks), task b seeded ``seed0 + b``."""
+    m/k(, F)], y [B, k, m/k], tasks), task b seeded ``seed0 + b``."""
+    if scenario is not None:
+        raise NotImplementedError(
+            "scenarios need repro.core.scenarios, ROADMAP queue 1, "
+            "item 11")
     ts = [make_task(cls, m=m, k=k, noise=noise, seed=seed0 + b,
                     adversarial_split=adversarial_split)
           for b in range(B)]

@@ -11,8 +11,10 @@ Hypotheses are float32 vectors ``(type, a, b, s)``: type 1 singleton
 (+1 iff x == a), 2 threshold (s if x ≥ a else −s), 3 interval (+1 iff
 a ≤ x ≤ b).  ``predict(params [*B, 4], x [*B, *pts])`` pairs each
 leading params row with the matching points and returns int8 ±1 of
-``x``'s shape.  The feature-track classes (AxisStumps, HistogramTrees)
-wait for their slices.
+``x``'s shape.  The feature-track classes take feature rows: type 4
+is an axis stump (s if X[f = a] ≥ b else −s), type 5 a histogram tree
+(:mod:`repro_torch.weak_tree`); their ``predict(params [*B, P],
+x [*B, *pts, F])`` returns ``[*B, *pts]``.
 """
 
 from __future__ import annotations
@@ -261,26 +263,82 @@ class Intervals:
         return _stack_params(3.0, a, b, 1.0), loss
 
 
-def make_class(name: str, *, n: int = 0):
-    """Build a hypothesis class by name (integer classes in this slice)."""
+@dataclasses.dataclass(frozen=True)
+class AxisStumps:
+    """H = {X ↦ s·sign(X[f] − θ)} over feature rows.  VC dim O(log F)."""
+
+    num_features: int
+    value_bits: int = 32
+
+    needs_features = True
+
+    @property
+    def vc_dim(self) -> int:
+        return max(1, _ceil_log2(self.num_features) + 1)
+
+    def hypothesis_bits(self) -> int:
+        return _ceil_log2(self.num_features) + self.value_bits + 3
+
+    def sample_points(self, rng, m: int):
+        return (rng.standard_normal((m, self.num_features))
+                .astype(np.float32) * 100.0)
+
+    def sample_target(self, rng, x):
+        f = int(rng.integers(self.num_features))
+        theta = float(np.quantile(x[:, f], rng.uniform(0.2, 0.8)))
+        s = float(rng.choice([-1.0, 1.0]))
+        return np.array([4.0, f, theta, s], np.float32)
+
+    def predict(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """params [*B, 4], x [*B, *pts, F] → int8 [*B, *pts]."""
+        f = params[..., 1].long()
+        f = f.reshape(f.shape + (1,) * (x.ndim - f.ndim))
+        xv = torch.gather(x, -1, f.expand(x.shape[:-1] + (1,)))[..., 0]
+        theta = _field(params, 2, xv)
+        s = _field(params, 3, xv)
+        return torch.where(xv >= theta, s, -s).to(torch.int8)
+
+    def erm(self, xs, ys, w):
+        """The 1-D threshold ERM on every feature column at once
+        (xs [B, K, F]), the best feature pinned to the lowest index."""
+        thr = Thresholds(n=1 << self.value_bits)
+        cols = xs.transpose(-1, -2)                          # [B, F, K]
+        params_f, losses = thr.erm(cols, ys[..., None, :].expand_as(cols),
+                                   w[..., None, :].expand_as(cols))
+        f = pinned_argmin(losses)
+        p = torch.gather(params_f, -2, f[..., None, None].expand(
+            f.shape + (1, PARAM_DIM)))[..., 0, :]
+        params = torch.stack([torch.full_like(p[..., 0], 4.0), f.float(),
+                              p[..., 1], p[..., 3]], dim=-1)
+        return params, _gather(losses, f)
+
+
+def make_class(name: str, *, n: int = 0, num_features: int = 0,
+               tree_depth: int = 2, tree_bins: int = 32,
+               tree_comm_mode: str = "coreset", tree_vote_topk: int = 2):
+    """Build a hypothesis class by name (the reference's signature)."""
     if name == "singletons":
         return Singletons(n=n)
     if name == "thresholds":
         return Thresholds(n=n)
     if name == "intervals":
         return Intervals(n=n)
-    if name in ("stumps", "tree"):
-        raise NotImplementedError(
-            f"--cls {name} is a feature-track class: AxisStumps needs the "
-            "threefry PRNG port (ROADMAP queue 1, item 7), HistogramTrees "
-            "its own slice (queue 1, item 8)")
+    if name == "stumps":
+        return AxisStumps(num_features=num_features)
+    if name == "tree":
+        from repro_torch.weak_tree import HistogramTrees
+        return HistogramTrees(num_features=num_features, depth=tree_depth,
+                              bins=tree_bins, comm_mode=tree_comm_mode,
+                              vote_topk=tree_vote_topk)
     raise ValueError(f"unknown hypothesis class {name!r}")
 
 
 def ensemble_predict(cls, hyp_params: torch.Tensor, rounds: int,
                      x: torch.Tensor) -> torch.Tensor:
-    """g(x) = sign(Σ_{t<rounds} h_t(x)); sign(0) := +1."""
-    votes = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    """g(x) = sign(Σ_{t<rounds} h_t(x)); sign(0) := +1.  ``x`` holds
+    points, or feature rows [..., F] for a feature-track class."""
+    shape = x.shape[:-1] if needs_features(cls) else x.shape
+    votes = torch.zeros(shape, dtype=torch.int32, device=x.device)
     for t in range(int(rounds)):
         votes += cls.predict(hyp_params[t], x).to(torch.int32)
     one = torch.ones((), dtype=torch.int8, device=x.device)

@@ -52,6 +52,16 @@ def log_wsums_from_sums(wsum: torch.Tensor, hmin: torch.Tensor) -> torch.Tensor:
     return torch.where(wsum > 0, out, -math.inf)
 
 
+def normalized_log_probs(hits: torch.Tensor, alive: torch.Tensor,
+                         log_wsum: torch.Tensor) -> torch.Tensor:
+    """log2 p_t(z) = −hits − log2 W over the last axis (−inf on dead
+    entries, NaN across an all-dead row, as in the reference), from the
+    row's log2 weight sum ``log_wsum`` [...] — the engine's
+    :func:`log_wsums_from_sums`, the reference's max-shifted form."""
+    logw = torch.where(alive, -hits.float(), -math.inf)
+    return logw - log_wsum[..., None]
+
+
 def mixture_weights(log_wsums: torch.Tensor) -> torch.Tensor:
     """W^{(i)} / W over the last (player) axis from per-player log2
     sums (step 2(c)); players with −inf get weight 0."""

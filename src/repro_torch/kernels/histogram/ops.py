@@ -1,0 +1,78 @@
+"""Public wrappers of the tree histogram: route by the tensors' device.
+
+A CPU tensor (or ``interpret=True`` on any device) goes to the plain
+version in ``ref.py``; a CUDA tensor goes to the hand-written kernel
+and nowhere else — a failed build or launch raises.  ``launches``
+counts kernel launches (the plain version never adds to it), so a run
+can show that its main path went through the kernel.  Both versions
+sum in the order :func:`ref.xla_cpu_block` picks for the call's shape.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.histogram import ref
+from repro_torch.kernels.histogram.ref import (  # noqa: F401 (re-export)
+    best_splits_per_feature, best_splits_ref, bin_index)
+
+launches = 0
+
+
+def node_histograms(x: torch.Tensor, w: torch.Tensor, wy: torch.Tensor,
+                    bins: int, *, interpret: bool | None = None):
+    """(hist_w, hist_wy) [..., N, F, Q] float32 — see
+    :func:`ref.node_histograms_ref`.
+
+    x [..., c, F] float32; w, wy [..., N, c] float32 with the same
+    leading axes (tasks, or tasks and players), all on one device.
+    One kernel launch serves every (leading index, node) pair.
+    """
+    global launches
+    if x.dtype != torch.float32 or w.dtype != torch.float32 \
+            or wy.dtype != torch.float32:
+        raise TypeError("node_histograms takes float32 x, w and wy")
+    if x.ndim < 2 or w.shape != wy.shape or w.ndim != x.ndim \
+            or w.shape[:-2] != x.shape[:-2] or w.shape[-1] != x.shape[-2]:
+        raise ValueError(f"node_histograms shapes do not fit [..., c, F] "
+                         f"and [..., N, c]: {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(wy.shape)}")
+    if not (x.device == w.device == wy.device):
+        raise ValueError("node_histograms inputs lie on different devices")
+    if bins < 2 or bins & (bins - 1) or bins > 1 << 15:
+        raise ValueError(f"bins must be a power of two in [2, 2^15], "
+                         f"got {bins}")
+    c, F = x.shape[-2:]
+    N = w.shape[-2]
+    if c == 0 or F == 0:
+        raise ValueError("node_histograms needs c ≥ 1 points of F ≥ 1 "
+                         "features")
+    block = ref.xla_cpu_block(c, N)
+    if interpret or x.device.type == "cpu":
+        if interpret is False:
+            raise ValueError("the histogram kernel needs CUDA tensors")
+        return ref.node_histograms_ref(x, w, wy, bins, block)
+    from repro_torch.kernels.histogram import kernel
+
+    lead = x.shape[:-2]
+    G = 1
+    for s in lead:
+        G *= s
+    xc = x.reshape(G, c, F).contiguous()
+    wc = w.reshape(G, N, c).contiguous()
+    wyc = wy.reshape(G, N, c).contiguous()
+    hw = torch.empty((G, N, F, bins), dtype=torch.float32, device=x.device)
+    hwy = torch.empty_like(hw)
+    kernel.launch(xc, wc, wyc, hw, hwy, bins, block,
+                  torch.cuda.current_stream(x.device))
+    launches += 1
+    shape = lead + (N, F, bins)
+    return hw.reshape(shape), hwy.reshape(shape)
+
+
+def best_node_splits(x: torch.Tensor, w: torch.Tensor, wy: torch.Tensor,
+                     bins: int, *, interpret: bool | None = None):
+    """Histogram + reduce: (feat, q, err), each [..., N] — the split
+    finding of one tree level in one call."""
+    hw, hwy = node_histograms(x, w, wy, bins, interpret=interpret)
+    return best_splits_ref(hw, hwy)

@@ -24,7 +24,7 @@ from repro.core import classify as j_classify
 from repro.core import tasks as j_tasks
 from repro.core import weak as j_weak
 from repro.core.types import BoostConfig as JConfig
-from repro_torch.core import batched, tasks, weak
+from repro_torch.core import batched, prng, tasks, weak
 from repro_torch.core.types import BoostConfig
 
 N = 1 << 12
@@ -77,7 +77,8 @@ def test_port_equals_jax_batched_engine(clsname, noise):
     ref = j_batched.run_accurately_classify_batched(x, y, keys,
                                                     JConfig(**CFG), jcls)
     got = batched.run_accurately_classify_batched(
-        px, py, BoostConfig(**CFG), cls, device="cpu")
+        px, py, prng.split(prng.key(5), B), BoostConfig(**CFG), cls,
+        device="cpu")
     assert bool(got.ok.all())
     assert_results_equal(ref, got)
     for b in range(B):

@@ -8,9 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import batched, weak
+from repro_torch.core import batched, prng, weak
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import ops as mw_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,10 +47,14 @@ def test_cuda_entry_points_raise_without_a_card():
     y = np.ones((1, 2, 8), np.int8)
     cfg = BoostConfig(k=2, coreset_size=4, domain_size=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        batched.run_accurately_classify_batched(x, y, cfg,
+        batched.run_accurately_classify_batched(x, y, prng.key(0), cfg,
                                                 weak.Thresholds(n=16))
     assert resolve_device("cpu").type == "cpu"
     hits = torch.zeros((1, 8), dtype=torch.int32)
     mask = torch.ones((1, 8), dtype=torch.bool)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         mw_ops.mw_update(hits, mask, mask, interpret=False)
+    feats = torch.zeros((1, 8, 2))
+    w = torch.zeros((1, 1, 8))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        hist_ops.node_histograms(feats, w, w, 4, interpret=False)

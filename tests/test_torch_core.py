@@ -27,8 +27,9 @@ from repro.core import weak as j_weak
 from repro.core import weights as j_weights
 from repro.core.types import BoostConfig as JConfig
 from repro_torch.core import approximation, batched, classify, fp32
-from repro_torch.core import ledger, streaming, weak, weights
+from repro_torch.core import ledger, streaming, tasks, weak, weights
 from repro_torch.core.types import BoostConfig
+from repro_torch.weak_tree import HistogramTrees
 
 CLASSES = ("thresholds", "intervals", "singletons")
 
@@ -220,8 +221,8 @@ def test_slice_boundaries_raise_with_their_queue_item():
     x = torch.zeros((1, 1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="item 10"):
         streaming.sort_order(x, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        approximation.select_coreset(x, x.to(torch.int8), x, x.bool(), 4,
-                                     False)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        weak.make_class("stumps", n=4)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        HistogramTrees(num_features=4, chunk_size=4)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tasks.make_batch(weak.make_class("stumps", num_features=2), 1, 8,
+                         2, 0, scenario="byzantine")

@@ -17,7 +17,7 @@ from repro.core import tasks as j_tasks
 from repro.core import weak as j_weak
 from repro.core.types import BoostConfig as JConfig
 from repro_torch import convert
-from repro_torch.core import batched, weak
+from repro_torch.core import batched, prng, weak
 from repro_torch.core.types import BoostConfig
 
 from test_torch_batched import CFG, N, assert_results_equal
@@ -33,7 +33,7 @@ def _batch():
 
 def _run_sliced(x, y, n, sched=None):
     cfg, cls = BoostConfig(**CFG), weak.Thresholds(n=N)
-    s = batched.init_state(x, y, cfg, cls=cls, device="cpu")
+    s = batched.init_state(x, y, prng.key(5), cfg, cls=cls, device="cpu")
     for _ in range(500):
         s = batched.run_rounds(s, x, y, cfg, cls, n=n, player_sched=sched)
         if not bool((~s.done & (s.attempt < cfg.opt_budget + 1)).any()):
@@ -49,7 +49,7 @@ def test_sliced_runs_equal_monolithic(slice_rounds):
     for name, a, b in zip(batched.StepState._fields, whole, sliced):
         assert torch.equal(a, b), name
     cfg, cls = BoostConfig(**CFG), weak.Thresholds(n=N)
-    s0 = batched.init_state(x, y, cfg, cls=cls, device="cpu")
+    s0 = batched.init_state(x, y, prng.key(5), cfg, cls=cls, device="cpu")
     same = batched.run_rounds(s0, x, y, cfg, cls, n=0)
     assert all(torch.equal(a, b) for a, b in zip(s0, same))
 
@@ -63,7 +63,7 @@ def test_dropout_schedule_gives_the_masked_ledger():
         x, y, keys, JConfig(**CFG), j_weak.Thresholds(n=N),
         player_sched=sched)
     got = batched.run_accurately_classify_batched(
-        x, y, BoostConfig(**CFG), weak.Thresholds(n=N),
+        x, y, prng.key(5), BoostConfig(**CFG), weak.Thresholds(n=N),
         player_sched=sched, device="cpu")
     assert_results_equal(ref, got)
     assert (got.hist_players < got.hist_rounds * 4 + 4).any()
@@ -87,7 +87,7 @@ def test_jax_state_finished_by_the_port():
 def test_port_state_finished_by_jax():
     x, y = _batch()
     cfg, cls = BoostConfig(**CFG), weak.Thresholds(n=N)
-    ps = batched.init_state(x, y, cfg, cls=cls, device="cpu")
+    ps = batched.init_state(x, y, prng.key(5), cfg, cls=cls, device="cpu")
     ps = batched.run_rounds(ps, x, y, cfg, cls, n=3)
     leaves = convert.to_jax(ps)
     assert set(leaves) == set(j_batched.StepState._fields)
@@ -106,5 +106,5 @@ def test_init_state_refuses_more_than_126_rounds():
     cfg = BoostConfig(k=4, coreset_size=8, domain_size=N)
     x = np.zeros((1, 4, 2 ** 19 + 1), np.int32)
     with pytest.raises(ValueError, match="item 10"):
-        batched.init_state(x, np.ones(x.shape, np.int8), cfg,
+        batched.init_state(x, np.ones(x.shape, np.int8), prng.key(0), cfg,
                            device="cpu")
