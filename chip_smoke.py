@@ -36,7 +36,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
-MAIN_ROWS, MAIN_MLOC = 64, 1 << 18  # B·k player rows × examples per player
+# mw_update shapes [B·k player rows, examples per player] of each path
+MW_SHAPES = {"thresholds": (64, 1 << 18), "tree": (64, 1 << 14)}
 SLICE_ARGS = ["--workload", "classify", "--cls", "thresholds", "--batch",
               "16", "--m", str(1 << 20), "--k", "4", "--noise", "8",
               "--domain", "65536", "--coreset", "100", "--opt-budget",
@@ -95,12 +96,13 @@ def mw_inputs(R: int, m: int, seed: int, dead_row=False, alive_row=False,
 
 
 def phase_kernel(ops) -> dict:
-    """mw_update against its plain version at the main path's shape and
-    at ragged shapes; returns its JSON entry (without launches)."""
-    cases = [dict(R=MAIN_ROWS, m=MAIN_MLOC),
-             dict(R=5, m=3001, dead_row=True, alive_row=True),
-             dict(R=3, m=2048 * 3 + 1, max_hits=126),
-             dict(R=2, m=7, dead_row=True)]
+    """mw_update against its plain version at each path's shape and at
+    ragged shapes, timed at each path's shape; returns its JSON entry
+    (without launches), its top-level numbers the tree path's."""
+    cases = [dict(R=R, m=m) for R, m in MW_SHAPES.values()] + [
+        dict(R=5, m=3001, dead_row=True, alive_row=True),
+        dict(R=3, m=2048 * 3 + 1, max_hits=126),
+        dict(R=2, m=7, dead_row=True)]
     max_abs = 0.0
     for i, case in enumerate(cases):
         R, m = case.pop("R"), case.pop("m")
@@ -113,22 +115,28 @@ def phase_kernel(ops) -> dict:
         err = (kw.double() - rw.double()).abs().max().item()
         max_abs = max(max_abs, err)
         log(f"mw_update [{R}, {m}]: new_hits and wsum bitwise")
-    hits, correct, alive = mw_inputs(MAIN_ROWS, MAIN_MLOC, seed=0)
-    kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive))
-    plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
-                                             interpret=True), reps=20)
-    n = MAIN_ROWS * MAIN_MLOC
-    bytes_moved = n * (4 + 1 + 1 + 4) + MAIN_ROWS * 4
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    log(f"mw_update main shape [{MAIN_ROWS}, {MAIN_MLOC}]: kernel_ms "
-        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} bound_us "
-        f"{bound_ms * 1e3:.2f} ({bytes_moved} bytes) share_of_bound "
-        f"{bound_ms / kernel_ms:.3f}")
+    paths = {}
+    for path, (R, m) in MW_SHAPES.items():
+        hits, correct, alive = mw_inputs(R, m, seed=0)
+        kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive))
+        plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
+                                                 interpret=True), reps=20)
+        bytes_moved = R * m * (4 + 1 + 1 + 4) + R * 4
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        log(f"mw_update {path} shape [{R}, {m}]: kernel_ms {kernel_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_us {bound_ms * 1e3:.2f} "
+            f"({bytes_moved} bytes) share_of_bound "
+            f"{bound_ms / kernel_ms:.3f}")
+        paths[path] = {"shape": [R, m], "ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms}
+    tree = paths["tree"]
     return {"name": "mw_update", "route": "cuda",
             "source": "src/repro_torch/kernels/mw_update/csrc/mw_update.cu",
             "replaces": "src/repro/kernels/mw_update/kernel.py:36",
-            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": max_abs, "ms": tree["ms"],
+            "plain_ms": tree["plain_ms"], "bound_ms": tree["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "path": "tree",
+            "paths": paths}
 
 
 def hist_inputs(G, N, c, F, Q, seed, dyadic=False, edges=False):
@@ -164,6 +172,7 @@ def phase_histogram(ops, ref) -> dict:
              dict(G=3, N=2, c=1000, F=3, Q=8, edges=True),
              dict(G=2, N=2, c=300, F=40, Q=64, edges=True),
              dict(G=16, N=2, c=400, F=8, Q=32, dyadic=True)]
+    max_abs = 0.0
     for i, case in enumerate(cases):
         x, w, wy = hist_inputs(seed=100 + i, **case)
         Q = case["Q"]
@@ -172,6 +181,9 @@ def phase_histogram(ops, ref) -> dict:
         rw, rwy = ops.node_histograms(x, w, wy, Q, interpret=True)
         check(torch.equal(kw, rw) and torch.equal(kwy, rwy),
               f"histogram differs from its plain version at {case}")
+        for k, r in ((kw, rw), (kwy, rwy)):
+            max_abs = max(max_abs,
+                          (k.double() - r.double()).abs().max().item())
         log(f"histogram {case}: hist_w and hist_wy bitwise (block "
             f"{ref.xla_cpu_block(case['c'], case['N'])})")
     G, N, c, F, Q = m["G"], m["N"], m["c"], m["F"], m["Q"]
@@ -197,10 +209,12 @@ def phase_histogram(ops, ref) -> dict:
     return {"name": "histogram", "route": "cuda",
             "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
             "replaces": "src/repro/kernels/histogram/kernel.py:106",
-            "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "path": "tree",
+            "paths": {"tree": {"shape": [G, N, c, F, Q], "ms": kernel_ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms}}}
 
 
 def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
@@ -400,9 +414,14 @@ def main() -> int:
           TREE_ARGS, "tree", 5)
     # 6. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
-    # 7. results
+    # 7. results: top-level launches are the tree path's, each path's
+    # own next to that path's timing
     for name, entry in entries.items():
         entry["launches"] = launches[name]
+        for path, counts in (("thresholds", int_launches),
+                             ("tree", launches)):
+            if counts[name]:
+                entry["paths"][path]["launches"] = counts[name]
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

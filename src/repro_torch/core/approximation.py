@@ -24,9 +24,6 @@ from repro_torch.core import weights as W
 from repro_torch.core.pinned import pinned_argmax
 
 _I32_MAX = torch.iinfo(torch.int32).max
-# Gumbel entries drawn at once by sampled_coreset (int64 temporaries of
-# the threefry hash are 8 bytes each): bounds the draw's peak memory
-DRAW_CHUNK = 1 << 25
 
 
 def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
@@ -97,20 +94,11 @@ def sampled_coreset(keys: torch.Tensor, hits: torch.Tensor,
     the natural-log probabilities, the winner pinned to the lowest
     index as in the reference.  An all-dead row has NaN logits and
     yields index m, one past the row, exactly as the reference does
-    (its gather then fills, see :func:`gather_fill`).  The draw is
-    made in chunks of rows of at most :data:`DRAW_CHUNK` entries;
-    the bits do not depend on the chunking.
+    (its gather then fills, see :func:`gather_fill`).
     """
-    m = hits.shape[-1]
     logp = W.normalized_log_probs(hits, alive, log_wsum) * fp32.LN2
-    rows = max(1, DRAW_CHUNK // max(1, logp.numel()))
-    out = []
-    for r0 in range(0, c, rows):
-        n = min(rows, c - r0)
-        g = prng.gumbel(keys, (c, m), start=r0 * m, count=n * m)
-        g = g.reshape(keys.shape[:-1] + (n, m))
-        out.append(pinned_argmax(g + logp[..., None, :], dim=-1))
-    return torch.cat(out, dim=-1)
+    g = prng.gumbel(keys, (c, hits.shape[-1]))
+    return pinned_argmax(g + logp[..., None, :], dim=-1)
 
 
 def gather_fill(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

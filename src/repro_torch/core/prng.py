@@ -15,9 +15,6 @@ bits on the CPU and on the card:
   reference's uint32 words);
 * the logs go through :func:`repro_torch.core.fp32.log`, XLA:CPU's
   float32 log, so the Gumbel draws equal the reference's bit for bit.
-
-Generation is counter-based: :func:`gumbel` takes a ``start`` row, and
-a draw made in chunks of rows has the same bits as one made whole.
 """
 
 from __future__ import annotations
@@ -95,24 +92,15 @@ def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape=(), start: int = 0,
-                count: int | None = None) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.bits`` (32-bit) of ``shape`` under every key of
-    ``keys`` [..., 2] → int64 [..., *shape] of uint32 values.
-
-    ``start``/``count`` select the flat entries [start, start+count)
-    of the draw instead (returned flat, [..., count]): entry i hashes
-    counter i whatever else is drawn, so chunks equal the whole."""
+    ``keys`` [..., 2] → int64 [..., *shape] of uint32 values; entry i
+    hashes its flat index i."""
     shape = tuple(int(s) for s in shape)
-    total = math.prod(shape)
-    flat = count is not None
-    if count is None:
-        count = total - start
-    idx = torch.arange(start, start + count, dtype=torch.int64,
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
                        device=keys.device)
     a, b = _hash_counters(keys, idx)
-    bits = a ^ b
-    return bits if flat else bits.reshape(keys.shape[:-1] + shape)
+    return (a ^ b).reshape(keys.shape[:-1] + shape)
 
 
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
@@ -123,21 +111,17 @@ def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0, start: int = 0,
-            count: int | None = None) -> torch.Tensor:
-    """``jax.random.uniform`` (float32) under every key; ``start``/
-    ``count`` as in :func:`random_bits`."""
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` (float32) under every key."""
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    floats = _unit_floats(random_bits(keys, shape, start, count))
+    floats = _unit_floats(random_bits(keys, shape))
     lo_t = torch.tensor(float(lo), dtype=torch.float32, device=keys.device)
     return torch.maximum(lo_t, floats * span + float(lo))
 
 
-def gumbel(keys: torch.Tensor, shape=(), start: int = 0,
-           count: int | None = None) -> torch.Tensor:
+def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.gumbel(mode="low")`` (float32) under every key:
-    ``−log(−log(u))`` with u uniform on [tiny, 1); ``start``/``count``
-    as in :func:`random_bits`."""
-    u = uniform(keys, shape, TINY, 1.0, start, count)
+    ``−log(−log(u))`` with u uniform on [tiny, 1)."""
+    u = uniform(keys, shape, TINY, 1.0)
     return -fp32.log(-fp32.log(u))

