@@ -5,24 +5,31 @@
 Builds the hand-written kernels from this checkout's sources (one nvcc
 per source, all at once), holds each against its plain PyTorch version
 on the card, and drives the port's paths through
-``repro_torch.launch.serve --workload classify``:
+``repro_torch.launch.serve``:
 
 * the integer track — thresholds, B = 16 tasks of m = 2^20 examples;
 * the feature track — HistogramTrees (F = 8, depth 2, 32 bins, coreset
   wire mode), B = 16 tasks of m = 2^16 examples;
+* LM serving — deepseek-7b at full width and depth (30 layers, d_model
+  4096), 4 prompts of 2048 tokens prefilled through the flash kernel
+  and 32 tokens decoded greedily, checked against an einsum prefill of
+  the same params and tokens;
 
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
 port's CPU run on the three integer classes, on AxisStumps and on
-HistogramTrees in its three wire modes.  Prints the card, each phase's
-seconds, the kernels' numbers as one JSON line, and, last, one JSON
-object with ``"ok": true``.  Any failed check exits non-zero before
-that line; so does a host with no CUDA device.  Imports nothing of JAX.
+HistogramTrees in its three wire modes, and the card's LM logits
+against the CPU's on reduced deepseek-7b and qwen3-32b.  Prints the
+card, each phase's seconds, the kernels' numbers as one JSON line, and,
+last, one JSON object with ``"ok": true``.  Any failed check exits
+non-zero before that line; so does a host with no CUDA device.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -36,6 +43,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 # mw_update shapes [B·k player rows, examples per player] of each path
 MW_SHAPES = {"thresholds": (64, 1 << 18), "tree": (64, 1 << 14)}
 SLICE_ARGS = ["--workload", "classify", "--cls", "thresholds", "--batch",
@@ -50,6 +58,18 @@ TREE_ARGS = ["--workload", "classify", "--cls", "tree", "--features", "8",
 # histogram shapes of the tree slice: G tasks (or task·player pairs),
 # c points, N nodes, F features, Q bins
 HIST_MAIN = dict(G=16, N=2, c=400, F=8, Q=32)
+LM_ARGS = ["--workload", "lm", "--arch", "deepseek-7b", "--no-smoke",
+           "--batch", "4", "--prompt-len", "2048", "--gen", "32",
+           "--device", "cuda"]
+# flash attention cases, (B, S, H, KV, hd): the reference's sweep
+# (tests/test_kernels.py), then the LM slice's shape, qwen3-32b's
+# attention widths (GQA, G = 8, hd 80) and a ragged S
+FLASH_SWEEP = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
+               (1, 256, 2, 2, 128)]
+FLASH_MAIN = (4, 2048, 32, 32, 128)
+FLASH_WIDE = [FLASH_MAIN, (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128)]
+LM_TOL = 2e-2                      # tests/test_kernels.py model-path tolerance
+LM_REL_L2_GATE = 5e-2              # flash vs einsum prefill, last-token logits
 
 
 T0 = time.perf_counter()
@@ -230,7 +250,7 @@ def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"{name}:", json.dumps(out))
-    check(launches == out["kernel_launches"],
+    check(launches == {**out["kernel_launches"], "flash_attention": 0},
           f"{name}: launch counts {launches} != {out['kernel_launches']}")
     check(launches["mw_update"] == res.steps,
           f"{name}: mw_update launches {launches['mw_update']} != engine "
@@ -355,6 +375,237 @@ def phase_card_vs_cpu(batched, prng, tasks, weak) -> None:
             f"({res['cuda'].steps} steps, ok {int(res['cuda'].ok.sum())})")
 
 
+def flash_inputs(B, S, H, KV, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def flash_work(B, S, H, KV, hd) -> tuple[int, int]:
+    """(FLOPs, bytes) causal attention needs without a window: 4·hd per
+    live (query, key) pair (q·k and p·v), S(S + 1)/2 pairs per head,
+    and each of q, k, v and o moved once in bf16."""
+    pairs = S * (S + 1) // 2
+    return 4 * hd * pairs * B * H, 2 * (2 * B * S * H * hd
+                                        + 2 * B * S * KV * hd)
+
+
+def phase_flash(ops) -> dict:
+    """The flash kernel against its plain version (full softmax in
+    float32) at the reference's sweep, the LM slice's shape, qwen3-32b's
+    widths and a ragged S; timed at the slice's shape beside the plain
+    version and SDPA.  Returns its JSON entry (without launches)."""
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = [(shape, dt, w) for shape in FLASH_SWEEP for dt in tol
+             for w in (0, 48)]
+    cases += [(shape, torch.bfloat16, w) for shape in FLASH_WIDE
+              for w in (0, 48)]
+    max_abs = 0.0
+    for i, (shape, dt, window) in enumerate(cases):
+        q, k, v = flash_inputs(*shape, dt, seed=200 + i)
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = ops.flash_attention(q, k, v, window=window, interpret=True)
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), rtol=tol[dt],
+                             atol=tol[dt]),
+              f"flash attention differs from its plain version at "
+              f"{shape} {dt} window {window}: max_abs_err {err}")
+        max_abs = max(max_abs, err)
+        log(f"flash attention {list(shape)} {str(dt)[6:]} window {window}: "
+            f"max_abs_err {err:.3g} <= {tol[dt]}")
+    q, k, v = flash_inputs(*FLASH_MAIN, torch.bfloat16, seed=7)
+    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v), reps=20)
+    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, interpret=True),
+                       reps=5, warm=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
+    flops, nbytes = flash_work(*FLASH_MAIN)
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"flash attention main shape {list(FLASH_MAIN)} bf16: kernel_ms "
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (scaled_dot_product_attention) bound_ms "
+        f"{bound_ms:.4f} ({flops} FLOP at bf16 peak {ops_ms:.4f} ms, "
+        f"{nbytes} bytes {bytes_ms:.4f} ms) share_of_bound "
+        f"{bound_ms / kernel_ms:.4f}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms, "path": "lm",
+            "paths": {"lm": {"shape": list(FLASH_MAIN), "ms": kernel_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms}}}
+
+
+@contextlib.contextmanager
+def float32_products(layers):
+    """Run the model's products in float32 instead of bf16 (the
+    ``dtype`` defaults of the layers that cast), for a reference prefill
+    that both bf16 paths can be measured against."""
+    fns = (layers.linear, layers.mlp, layers.embed, layers.unembed)
+    saved = [f.__defaults__ for f in fns]
+    for f in fns:
+        f.__defaults__ = (torch.float32,)
+    try:
+        yield
+    finally:
+        for f, d in zip(fns, saved):
+            f.__defaults__ = d
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_lm_slice(serve, models, layers) -> dict:
+    """deepseek-7b at full width and depth through ``serve --workload
+    lm``: every kernel's count set to 0 just before and read just after
+    (one flash launch per layer of the one prefill); finite logits and
+    tokens; the flash prefill's last-token logits against an einsum
+    prefill of the same params and tokens, and both against a prefill
+    with float32 products; a profile of one prefill and a few decode
+    steps.  Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = serve.build_parser().parse_args(LM_ARGS)
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, run = serve.run_lm(args)
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log("lm slice:", json.dumps(out))
+    cfg = run.model.cfg
+    check(out["kernel_launches"]["flash_attention"]
+          == launches["flash_attention"] == cfg.num_layers,
+          f"lm slice: flash launches {launches} != {cfg.num_layers} layers")
+    check(launches["mw_update"] == launches["histogram"] == 0,
+          f"lm slice launched a protocol kernel: {launches}")
+    check(cfg.d_model == 4096 and cfg.num_layers == 30,
+          f"lm slice ran {cfg.name}, not deepseek-7b at full size")
+    check(bool(torch.isfinite(run.prefill_logits).all())
+          and bool(torch.isfinite(run.logits).all()),
+          "lm slice: non-finite logits")
+    check(out["tokens_finite"] and run.generated.shape == (
+        args.batch, args.gen + 1), "lm slice: bad generated tokens")
+    params = run.params
+    log(f"lm slice: {cfg.name} {cfg.param_count()} params, prefill_s "
+        f"{out['prefill_s']} decode_s_per_token "
+        f"{out['decode_s_per_token']} launches {launches} "
+        f"max_memory_allocated {peak} bytes")
+    flash_logits, tokens = run.prefill_logits, run.tokens
+    del run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_logits, caches = models.build(cfg).make_prefill_step()(
+        params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del caches
+    err = rel_l2(flash_logits, plain_logits)
+    log(f"lm slice: flash vs einsum prefill, last-token logits relative "
+        f"L2 {err:.6g} (gate {LM_REL_L2_GATE}); einsum prefill_s "
+        f"{plain_s:.3f}")
+    check(err <= LM_REL_L2_GATE,
+          f"lm slice: flash vs einsum relative L2 {err} > {LM_REL_L2_GATE}")
+    with float32_products(layers):
+        f32_logits, caches = models.build(cfg).make_prefill_step()(
+            params, {"tokens": tokens})
+    del caches
+    to_f32 = [rel_l2(x, f32_logits) for x in (flash_logits, plain_logits)]
+    log(f"lm slice: against a prefill with float32 products, relative L2 "
+        f"of the last-token logits: flash {to_f32[0]:.6g}, einsum "
+        f"{to_f32[1]:.6g}")
+    # where a prefill's and a decode step's device time goes
+    model = models.build(cfg, use_flash=True)
+    prefill, decode = model.make_prefill_step(), model.make_decode_step()
+    for name, steps in (("prefill", 1), ("decode", 4)):
+        if name == "decode":
+            logits, caches = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if name == "prefill":
+                logits, caches = prefill(params, {"tokens": tokens})
+            else:
+                for _ in range(steps):
+                    logits, caches = decode(params, caches, tokens[:, :1])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        del caches
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not rows:
+            log(f"profile lm {name}: wall_ms {wall_ms:.2f} (profiled); "
+                "device time not measured (no kernels recorded)")
+            continue
+        dev_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
+        log(f"profile lm {name}: wall_ms/step {wall_ms:.2f} (profiled), "
+            f"device_ms/step {dev_ms:.3f}, device busy share "
+            f"{dev_ms / wall_ms:.3f}, kernels/step "
+            f"{sum(e.count for e in rows) / steps:.0f}")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+                f"x{e.count / steps:5.0f}  {e.key[:90]}")
+    del params, model, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_lm_card_vs_cpu(models, configs, flash_ops) -> None:
+    """Reduced deepseek-7b and qwen3-32b, params made once on the CPU:
+    prefill logits and 4 teacher-forced decode steps on the card and on
+    the CPU at the model-path tolerance; flash launches one per layer
+    on the card, none on the CPU."""
+    import numpy as np
+
+    for arch in ("deepseek-7b", "qwen3-32b"):
+        cfg = configs.reduced(configs.get_config(arch))
+        model = models.build(cfg, use_flash=True)
+        params = {"cpu": model.init(seed=0, device="cpu")}
+        params["cuda"] = to_device(params["cpu"], "cuda")
+        B, P, n = 2, 200, 4
+        toks = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, size=(B, P + n)).astype(np.int32)
+        logits, launches = {}, {}
+        for dev in ("cuda", "cpu"):
+            flash_ops.launches = 0
+            t = torch.as_tensor(toks, device=dev)
+            out, caches = model.make_prefill_step()(params[dev],
+                                                    {"tokens": t[:, :P]})
+            launches[dev] = flash_ops.launches
+            steps = [out]
+            for i in range(P, P + n):
+                out, caches = model.make_decode_step()(params[dev], caches,
+                                                       t[:, i:i + 1])
+                steps.append(out)
+            logits[dev] = torch.stack(steps).cpu()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(torch.allclose(logits["cuda"], logits["cpu"], rtol=LM_TOL,
+                             atol=LM_TOL),
+              f"lm card vs cpu, {arch}: logits differ by {err}")
+        check(launches == {"cuda": cfg.num_layers, "cpu": 0},
+              f"lm card vs cpu, {arch}: flash launches {launches}")
+        log(f"lm card vs cpu, {cfg.name}: prefill + {n} decode logits "
+            f"max_abs_err {err:.4g} <= {LM_TOL}; flash launches {launches}")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__).parse_args()
     if not torch.cuda.is_available():
@@ -362,8 +613,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
+    from repro_torch import configs, models
     from repro_torch.core import batched, ledger, prng, tasks, weak
+    from repro_torch.models import layers
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram import ref as hist_ref
     from repro_torch.kernels.mw_update import ops as mw_ops
@@ -394,7 +648,9 @@ def main() -> int:
     # 3. each kernel against its plain version
     entries = {"mw_update": phase("mw_update", phase_kernel, mw_ops),
                "histogram": phase("histogram", phase_histogram, hist_ops,
-                                  hist_ref)}
+                                  hist_ref),
+               "flash_attention": phase("flash attention", phase_flash,
+                                        flash_ops)}
     # 4. the integer-track path at full size
     _, _, int_launches = phase("thresholds slice", phase_slice, serve,
                                ledger, SLICE_ARGS, "thresholds slice")
@@ -412,14 +668,20 @@ def main() -> int:
     check(res.ok.any(), "no tree task finished")
     phase("tree profile", phase_profile, batched, serve, prng, tasks,
           TREE_ARGS, "tree", 5)
-    # 6. card against CPU
+    # 6. LM serving at full width: this slice's main path
+    lm_launches = phase("lm slice", phase_lm_slice, serve, models, layers)
+    # 7. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
-    # 7. results: top-level launches are the tree path's, each path's
-    # own next to that path's timing
+    phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
+          flash_ops)
+    # 8. results: each kernel's top-level launches are its own path's
+    # (mw_update and histogram the tree path's, flash attention the LM
+    # path's), each path's own next to that path's timing
     for name, entry in entries.items():
-        entry["launches"] = launches[name]
+        entry["launches"] = (lm_launches if name == "flash_attention"
+                             else launches)[name]
         for path, counts in (("thresholds", int_launches),
-                             ("tree", launches)):
+                             ("tree", launches), ("lm", lm_launches)):
             if counts[name]:
                 entry["paths"][path]["launches"] = counts[name]
     print(json.dumps({"kernels": list(entries.values())}))

@@ -1,0 +1,11 @@
+"""Architectures the port runs (the dense family), copied from
+``repro.configs``."""
+
+from repro_torch.configs.base import (ASSIGNED_ARCHS, DEFAULT_SWA_WINDOW,
+                                      INPUT_SHAPES, ModelConfig,
+                                      ShapeConfig, all_configs, get_config,
+                                      load_all, reduced)
+
+__all__ = ["ModelConfig", "ShapeConfig", "INPUT_SHAPES",
+           "DEFAULT_SWA_WINDOW", "ASSIGNED_ARCHS", "get_config",
+           "all_configs", "load_all", "reduced"]

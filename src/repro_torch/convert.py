@@ -1,4 +1,5 @@
-"""Carry protocol state between the JAX engine and the port.
+"""Carry protocol state and LM parameters between the JAX package and
+the port.
 
 A JAX ``repro.core.batched.StepState`` arrives as a dict of numpy
 arrays (``jax.device_get(state)._asdict()``); the port's
@@ -8,6 +9,10 @@ from ``hits`` and ``alive`` in the mw_update kernel's summation order.
 A JAX run stopped after n rounds can so be finished by the port, and
 the other way round.  The data ``x``/``y`` stays plain numpy on both
 sides.
+
+LM parameters: :func:`lm_params_from_jax` loads the reference's params
+pytree (numpy leaves, ``jax.device_get(params)``) into the port's
+layout, so both implementations compute the same model in the tests.
 """
 
 from __future__ import annotations
@@ -54,3 +59,31 @@ def to_jax(state: batched.StepState) -> dict:
         v = v.cpu().numpy()
         out[f] = v.astype(np.uint32) if f in batched.KEY_FIELDS else v
     return out
+
+
+def lm_params_from_jax(tree: dict, cfg, device=None) -> dict:
+    """The port's LM parameters from the reference's params pytree.
+
+    In the reference every block leaf carries a leading
+    [num_superblocks] axis (the vmapped init) and ``blocks`` holds one
+    stack per pattern position; the port keeps one dict per layer.
+    ``linear`` weights are [in, out] in both.  Leaves keep their float32
+    values and land on ``device``."""
+    from repro_torch.models import transformer
+
+    transformer.check_dense(cfg)
+    dev = resolve_device(device)
+
+    def load(leaf):
+        return torch.as_tensor(np.array(leaf, dtype=np.float32), device=dev)
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        return load(np.asarray(node)[i])
+
+    (stack,) = tree["blocks"]
+    params = {k: {n: load(v) for n, v in tree[k].items()}
+              for k in ("embed", "final_norm", "lm_head") if k in tree}
+    params["blocks"] = [layer(stack, i) for i in range(cfg.num_layers)]
+    return params

@@ -1,7 +1,20 @@
-"""Serve a batch of AccuratelyClassify tasks with the port's batched
-engine (counterpart of ``repro.launch.serve --workload classify``).
+"""Serving entry points of the port (counterpart of ``repro.launch.serve``).
+
+* ``--workload lm`` (default) — prefill a batch of random prompts
+  through the dense LM and decode greedily.  It differs from the
+  reference's ``run`` in one deliberate way: the model is
+  ``build(cfg, use_flash=True)``, so prefill attention goes through the
+  flash kernel (the reference's ``run`` builds with ``use_flash=False``
+  and never reaches its Pallas kernel).  ``--smoke`` (on by default, as
+  in the reference) runs ``reduced(cfg)``; ``--no-smoke`` runs the
+  configuration at full width and depth.
+* ``--workload classify`` — a batch of AccuratelyClassify tasks through
+  the port's batched engine.
 
 Usage:
+    python -m repro_torch.launch.serve --workload lm --arch deepseek-7b \\
+        --no-smoke --batch 4 --prompt-len 2048 --gen 32
+    python -m repro_torch.launch.serve --workload lm --device cpu
     python -m repro_torch.launch.serve --workload classify \\
         --batch 16 --m 1048576 --k 4 --noise 8 --domain 65536
     python -m repro_torch.launch.serve --workload classify --cls tree \\
@@ -10,12 +23,14 @@ Usage:
     python -m repro_torch.launch.serve --workload classify --device cpu \\
         --cls stumps --batch 4 --m 512
 
-Prints one JSON line with the reference's keys plus ``device``,
-``steps`` and ``kernel_launches`` (each kernel's launches in the timed
-run; 0 on the CPU, where the plain versions run).  Keys come from
-``split(key(seed), B)`` as in the reference.  The run is timed once,
-after the kernel libraries are built, and ends in a device
-synchronise.
+Each prints one JSON line with the reference's keys plus ``device`` and
+``kernel_launches`` (the launches of each kernel the workload's path
+can reach, in the timed run; 0 on the CPU, where the plain versions
+run); ``lm`` adds ``flash``, ``classify`` adds ``steps``.  Prompt
+tokens come from ``np.random.default_rng(seed)`` and classify keys
+from ``split(key(seed), B)``, as in the reference.
+Runs are timed once, after the kernel libraries are built, each timed
+part ending in a device synchronise.
 """
 
 from __future__ import annotations
@@ -23,13 +38,19 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
+from repro_torch import configs, models
 from repro_torch.core import batched, prng, tasks, weak
+from repro_torch.core.pinned import pinned_argmax
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.histogram import kernel as hist_kernel
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import kernel as mw_kernel
@@ -37,12 +58,86 @@ from repro_torch.kernels.mw_update import ops as mw_ops
 
 # every kernel the engine can launch: name → (kernel module, ops module)
 KERNELS = {"mw_update": (mw_kernel, mw_ops),
-           "histogram": (hist_kernel, hist_ops)}
+           "histogram": (hist_kernel, hist_ops),
+           "flash_attention": (flash_kernel, flash_ops)}
+# the kernels each workload's path can launch, which its JSON reports
+PATH_KERNELS = {"classify": ("mw_update", "histogram"),
+                "lm": ("flash_attention",)}
 
 _NOT_YET = {
-    "lm": "the LM substrate, ROADMAP queue 1, item 15",
     "serve-stream": "the scheduler, ROADMAP queue 1, item 13",
 }
+
+
+def _build_kernels(dev: torch.device) -> None:
+    """Build and load every kernel library outside the timed run."""
+    if dev.type == "cuda":
+        _build.build_all([k.SOURCE for k, _ in KERNELS.values()])
+        for k, _ in KERNELS.values():
+            k.library()
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launches(workload: str) -> dict:
+    return {name: KERNELS[name][1].launches
+            for name in PATH_KERNELS[workload]}
+
+
+def run_lm(args):
+    """Prefill B random prompts and decode ``--gen`` tokens greedily;
+    returns (JSON dict, run) where ``run`` holds the model, params,
+    prompt tokens, the prefill's last-position logits, the generated
+    tokens [B, gen + 1] (on the CPU) and the last decode logits."""
+    dev = resolve_device(args.device)
+    cfg = configs.get_config(args.arch)
+    if args.smoke:
+        cfg = configs.reduced(cfg)
+    model = models.build(cfg, use_flash=True)
+    _build_kernels(dev)
+    params = model.init(args.seed, dev)
+    rng = np.random.default_rng(args.seed)
+    B, P = args.batch, args.prompt_len
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, P)),
+                             dtype=torch.int32, device=dev)
+    prefill = model.make_prefill_step()
+    decode = model.make_decode_step()
+    for _, ops in KERNELS.values():
+        ops.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    prefill_logits, caches = prefill(params, {"tokens": tokens})
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = pinned_argmax(prefill_logits, -1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    logits = prefill_logits
+    t0 = time.perf_counter()
+    for _ in range(args.gen):
+        logits, caches = decode(params, caches, tok)
+        tok = (pinned_argmax(logits, -1)[:, None]
+               % cfg.vocab_size).to(torch.int32)
+        out_tokens.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    gen = torch.cat(out_tokens, dim=1).cpu()
+    result = {
+        "arch": cfg.name, "batch": B, "prompt_len": P,
+        "generated": args.gen,
+        "prefill_s": round(t_prefill, 3),
+        "decode_s_per_token": round(t_decode / max(args.gen, 1), 4),
+        "tokens_finite": bool((gen >= 0).all()),
+        "sample": gen[0][:12].tolist(),
+        "device": dev.type, "flash": model.use_flash,
+        "kernel_launches": _launches("lm"),
+    }
+    run = SimpleNamespace(model=model, params=params, tokens=tokens,
+                          prefill_logits=prefill_logits, generated=gen,
+                          logits=logits)
+    return result, run
 
 
 def run_classify(args):
@@ -60,22 +155,17 @@ def run_classify(args):
     cfg = make_config(args, cls)
     x, y, ts = tasks.make_batch(cls, args.batch, args.m, args.k, args.noise,
                                 seed0=args.seed)
-    if dev.type == "cuda":                # build outside the timed run
-        _build.build_all([k.SOURCE for k, _ in KERNELS.values()])
-        for k, _ in KERNELS.values():
-            k.library()
+    _build_kernels(dev)
     xt = torch.as_tensor(x, device=dev)
     yt = torch.as_tensor(y, device=dev)
     keys = prng.split(prng.key(args.seed, device=dev), args.batch)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     for _, ops in KERNELS.values():
         ops.launches = 0
     t0 = time.perf_counter()
     res = batched.run_accurately_classify_batched(xt, yt, keys, cfg, cls,
                                                   device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = time.perf_counter() - t0
     B = args.batch
     result = {
@@ -86,8 +176,7 @@ def run_classify(args):
         "wall_s": round(wall, 4),
         "tasks_per_s": round(B / max(wall, 1e-9), 2),
         "device": dev.type, "steps": res.steps,
-        "kernel_launches": {name: ops.launches
-                            for name, (_, ops) in KERNELS.items()},
+        "kernel_launches": _launches("classify"),
     }
     return result, res, ts
 
@@ -112,9 +201,16 @@ def make_config(args, cls) -> BoostConfig:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", default="classify",
+    ap.add_argument("--workload", default="lm",
                     choices=["lm", "classify", "serve-stream"])
+    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="--workload lm: run reduced(arch); --no-smoke "
+                         "runs it at full width and depth")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--m", type=int, default=512)
     ap.add_argument("--k", type=int, default=4)
@@ -148,7 +244,8 @@ def main():
     if args.workload in _NOT_YET:
         raise SystemExit(f"--workload {args.workload} is not ported yet: "
                          f"{_NOT_YET[args.workload]}")
-    print(json.dumps(run_classify(args)[0]))
+    run = run_lm if args.workload == "lm" else run_classify
+    print(json.dumps(run(args)[0]))
 
 
 if __name__ == "__main__":

@@ -8,11 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs, models
 from repro_torch.core import batched, prng, weak
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import ops as mw_ops
+from repro_torch.launch import serve
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,3 +61,18 @@ def test_cuda_entry_points_raise_without_a_card():
     w = torch.zeros((1, 1, 8))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         hist_ops.node_histograms(feats, w, w, 4, interpret=False)
+
+
+def test_lm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for "
+                    "hosts without one")
+    cfg = configs.reduced(configs.get_config("deepseek-7b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models.build(cfg, use_flash=True).init(seed=0)
+    args = serve.build_parser().parse_args(["--workload", "lm"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_lm(args)
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_ops.flash_attention(q, q, q, interpret=False)
