@@ -14,12 +14,19 @@ on the card, and drives the port's paths through
   4096), 4 prompts of 2048 tokens prefilled through the flash kernel
   and 32 tokens decoded greedily, checked against an einsum prefill of
   the same params and tokens;
+* the scenario path — AxisStumps (F = 8) against the ``boundary``
+  adversary, B = 16 tasks of m = 2^16, every finished task held to
+  E_S(f) ≤ OPT with OPT of all tasks from one stump-kernel launch; and
+  the ``dropout`` infrastructure fault at m = 2^14, held to the
+  guarantee over the surviving shards;
 
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
 port's CPU run on the three integer classes, on AxisStumps and on
-HistogramTrees in its three wire modes, and the card's LM logits
-against the CPU's on reduced deepseek-7b and qwen3-32b.  Prints the
+HistogramTrees in its three wire modes, the scenario reports of
+``boundary``, ``byzantine`` and ``dropout`` against the CPU's, and the
+card's LM logits against the CPU's on reduced deepseek-7b and
+qwen3-32b.  Prints the
 card, each phase's seconds, the kernels' numbers as one JSON line, and,
 last, one JSON object with ``"ok": true``.  Any failed check exits
 non-zero before that line; so does a host with no CUDA device.
@@ -68,6 +75,38 @@ FLASH_SWEEP = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
                (1, 256, 2, 2, 128)]
 FLASH_MAIN = (4, 2048, 32, 32, 128)
 FLASH_WIDE = [FLASH_MAIN, (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128)]
+SCEN_ARGS = ["--workload", "classify", "--cls", "stumps", "--scenario",
+             "boundary", "--noise", "8", "--batch", "16", "--m",
+             str(1 << 16), "--k", "4", "--features", "8", "--coreset",
+             "100", "--opt-budget", "16", "--device", "cuda"]
+
+
+
+def with_flags(argv, **flags) -> list[str]:
+    """``argv`` with the values of the named flags replaced."""
+    out = list(argv)
+    for name, value in flags.items():
+        out[out.index("--" + name.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+# the infrastructure run: depth (m) cut to 2^14 to stay in the time
+# limit; 3 of 4 shards survive, m_s = 12,288, not a power of two
+DROP_ARGS = with_flags(SCEN_ARGS, scenario="dropout", m=1 << 14)
+# stump cases, (B or None for the unbatched form, c, F, Q, kind): the
+# reference's (tests/test_kernels.py: sweep, block edges, all-negative
+# weights, duplicated thresholds, batched grid), then a ragged shape
+STUMP_CASES = [(None, 32, 1, 8, "sweep"), (None, 128, 8, 128, "sweep"),
+               (None, 257, 9, 130, "sweep"), (None, 512, 16, 256, "sweep"),
+               (None, 127, 7, 127, "edge"), (None, 129, 9, 129, "edge"),
+               (None, 1, 1, 1, "edge"), (None, 255, 17, 257, "edge"),
+               (None, 130, 9, 127, "negative"),
+               (None, 64, 4, 6, "duplicates"), (1, 127, 7, 129, "edge"),
+               (3, 129, 9, 127, "edge"), (2, 128, 8, 128, "edge"),
+               (4, 33, 3, 17, "edge"), (2, 129, 9, 130, "negative"),
+               (2, 3001, 5, 1001, "edge")]
+STUMP_MAIN = (16, 1 << 16, 8, (1 << 16) + 1)   # B, c, F, Q of the OPT launch
+STUMP_SMALL = (1, 1 << 14, 8, (1 << 14) + 1)   # the step matrix fits: 8.6 GB
 LM_TOL = 2e-2                      # tests/test_kernels.py model-path tolerance
 LM_REL_L2_GATE = 5e-2              # flash vs einsum prefill, last-token logits
 
@@ -237,6 +276,222 @@ def phase_histogram(ops, ref) -> dict:
                                "plain_ms": plain_ms, "bound_ms": bound_ms}}}
 
 
+def stump_inputs(B, c, F, Q, kind, weights, seed):
+    """x [(B,) c, F], wy [(B,) c], thetas [(B,) F, Q] on the card, the
+    thresholds holding the 3.4e38 pad and values equal to points'."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if B is None else (B,)
+    if kind == "duplicates":
+        x = torch.randint(0, 8, lead + (c, F), generator=g,
+                          device="cuda").float()
+        th = torch.randint(0, 8, lead + (F, 1), generator=g,
+                           device="cuda").float().expand(
+                               lead + (F, Q)).contiguous()
+    else:
+        x = torch.randn(lead + (c, F), generator=g, device="cuda") * 10
+        th = torch.randn(lead + (F, Q), generator=g, device="cuda") * 10
+        if kind == "sweep":
+            th = th.sort(dim=-1).values
+        n = min(c, Q)
+        th[..., :n] = x[..., :n, :].transpose(-1, -2)   # ties with points
+        th[..., -1] = 3.4e38                            # the pad
+    sign = torch.where(torch.rand(lead + (c,), generator=g, device="cuda")
+                       < 0.5, -1.0, 1.0)
+    if kind == "negative":
+        sign = -torch.ones_like(sign)
+    if weights == "pm1":
+        wy = sign
+    elif weights == "dyadic":
+        wy = sign * torch.ldexp(torch.ones_like(sign), -torch.randint(
+            0, 7, lead + (c,), generator=g, device="cuda"))
+    else:
+        wy = sign * (torch.rand(lead + (c,), generator=g, device="cuda")
+                     + 0.05)
+    return x, wy, th
+
+
+def opt_inputs(B, c, F, seed):
+    """The OPT launch's inputs at B tasks of c points: ±1 labels, the
+    points' own values plus the pad as thresholds."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, c, F), generator=g, device="cuda") * 100
+    wy = torch.where(torch.rand((B, c), generator=g, device="cuda") < 0.5,
+                     -1.0, 1.0)
+    pad = torch.full((B, F, 1), 3.4e38, device="cuda")
+    th = torch.cat([x.transpose(1, 2), pad], dim=-1).contiguous()
+    return x, wy, th
+
+
+def stump_work(B, c, F, Q) -> tuple[int, int]:
+    """(FLOP, bytes): a compare and an add per (point, threshold) pair;
+    x, wy and thetas read once, S written once, in float32."""
+    return 2 * B * c * F * Q, 4 * (B * c * F + B * c + 2 * B * F * Q)
+
+
+def phase_stump(ops) -> dict:
+    """The stump kernel against its plain version: bitwise on ±1 and
+    dyadic weights, within rtol 1e-5 plus atol 1e-6·Σ|wy| on float
+    weights, at the reference's cases, a ragged shape and the scenario
+    slice's OPT shape; timed at the OPT shape (the plain version and
+    torch.matmul on a materialised step matrix at a smaller stated
+    shape).  Returns its JSON entry (without launches)."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain version would drop bits")
+    max_abs = 0.0
+    for i, case in enumerate(STUMP_CASES):
+        for weights in ("pm1", "dyadic", "float"):
+            x, wy, th = stump_inputs(*case, weights, seed=300 + i)
+            got = ops.stump_scores(x, wy, th)
+            torch.cuda.synchronize()
+            want = ops.stump_scores(x, wy, th, interpret=True)
+            err = (got.double() - want.double()).abs().max().item()
+            if weights == "float":
+                atol = 1e-6 * wy.abs().sum(-1).max().item()
+                check(torch.allclose(got, want, rtol=1e-5, atol=atol),
+                      f"stump differs from its plain version at {case} "
+                      f"{weights}: max_abs_err {err}")
+            else:
+                check(torch.equal(got, want), f"stump not bitwise at "
+                      f"{case} {weights}: max_abs_err {err}")
+            max_abs = max(max_abs, err)
+        log(f"stump {case}: ±1 and dyadic bitwise, float within "
+            f"tolerance")
+    B, c, F, Q = STUMP_MAIN
+    x, wy, th = opt_inputs(B, c, F, seed=9)
+    got = ops.stump_scores(x, wy, th)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ops.stump_scores(x, wy, th, interpret=True)   # one run: seconds
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    check(torch.equal(got, want), "stump not bitwise at the OPT shape")
+    log(f"stump OPT shape {list(STUMP_MAIN)}, ±1 weights: bitwise")
+    del want
+    kernel_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=5, warm=1)
+    flops, nbytes = stump_work(B, c, F, Q)
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    del x, wy, th, got
+    b1, c1, f1, q1 = STUMP_SMALL
+    x, wy, th = opt_inputs(b1, c1, f1, seed=10)
+    small_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=10)
+    small_plain_ms = time_ms(lambda: ops.stump_scores(x, wy, th,
+                                                      interpret=True),
+                             reps=5, warm=1)
+    step = (x[..., None] >= th[:, None]).float().reshape(b1, c1, f1 * q1)
+    library_ms = time_ms(lambda: torch.matmul(wy[:, None, :], step),
+                         reps=10)
+    lib = torch.matmul(wy[:, None, :], step).reshape(b1, f1, q1)
+    check(torch.equal(lib, ops.stump_scores(x, wy, th)),
+          "torch.matmul on the step matrix disagrees with the kernel")
+    del step, lib
+    torch.cuda.empty_cache()
+    small_bound = max(stump_work(*STUMP_SMALL)[0] / FP32_FLOPS,
+                      stump_work(*STUMP_SMALL)[1] / HBM_BYTES_PER_S) * 1e3
+    log(f"stump OPT shape {list(STUMP_MAIN)}: kernel_ms {kernel_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} (one run) bound_ms {bound_ms:.4f} "
+        f"({flops} FLOP at the float32 peak {ops_ms:.4f} ms, {nbytes} "
+        f"bytes {bytes_ms:.4f} ms) share_of_bound "
+        f"{bound_ms / kernel_ms:.4f}")
+    log(f"stump at {list(STUMP_SMALL)}: kernel_ms {small_ms:.4f} plain_ms "
+        f"{small_plain_ms:.4f} library_ms {library_ms:.4f} (torch.matmul, "
+        f"step matrix built outside) bound_ms {small_bound:.4f}")
+    # ms, plain_ms and bound_ms at the OPT shape; no single library call
+    # fits there (its step matrix would take 2.2 TB), so library_ms is
+    # taken at library_shape, beside the kernel's and plain version's
+    return {"name": "stump", "route": "cuda",
+            "source": "src/repro_torch/kernels/stump/csrc/stump.cu",
+            "replaces": "src/repro/kernels/stump/kernel.py:91 "
+                        "(and :54, the same kernel at B = 1)",
+            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms, "library_shape": list(STUMP_SMALL),
+            "at_library_shape": {"ms": small_ms, "plain_ms": small_plain_ms,
+                                 "bound_ms": small_bound},
+            "path": "scenario",
+            "paths": {"scenario": {"shape": list(STUMP_MAIN),
+                                   "ms": kernel_ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms}}}
+
+
+def phase_scenario(serve, argv, name) -> tuple[dict, object, dict]:
+    """The scenario path through the serve entry point, every kernel's
+    count set to 0 just before and read just after: one stump launch
+    (the OPT of every finished task), one mw_update per step, and every
+    finished task with E_S(f) ≤ OPT — over the surviving shards for an
+    infrastructure fault, and OPT ≤ the planted noise for a noise
+    adversary.  Returns (serve JSON, result, launches)."""
+    args = serve.build_parser().parse_args(argv)
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, res, ts, reports = serve.run_classify(args)
+    total_s = time.perf_counter() - t0
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}:", json.dumps(out))
+    check(launches == {**out["kernel_launches"], "flash_attention": 0},
+          f"{name}: launch counts {launches} != {out['kernel_launches']}")
+    check(launches["mw_update"] == res.steps,
+          f"{name}: mw_update launches {launches['mw_update']} != engine "
+          f"steps {res.steps}")
+    check(out["ok"] >= 1, f"{name}: no task finished")
+    check(launches["stump"] == 1,
+          f"{name}: {launches['stump']} stump launches, not 1")
+    done = [b for b in range(args.batch) if res.ok[b]]
+    check(len(reports) == len(done) == out["ok"],
+          f"{name}: {len(reports)} reports for {out['ok']} finished tasks")
+    infra = "survivors" in out
+    key = "guarantee_ok_survivors" if infra else "guarantee_ok"
+    check(out[key] == out["ok"],
+          f"{name}: {key} {out[key]} of {out['ok']} finished tasks")
+    for b, r in zip(done, reports):
+        check(r["errors"] <= r["opt"], f"{name} task {b}: {r}")
+        if not infra:
+            check(r["opt"] <= ts[b].noise_count,
+                  f"{name} task {b}: OPT {r['opt']} > planted noise "
+                  f"{ts[b].noise_count}")
+        log(f"{name} task {b}: {json.dumps(r)}")
+    log(f"{name}: ok {out['ok']} of {args.batch}, tasks_per_s "
+        f"{out['tasks_per_s']} wall_s {out['wall_s']} steps {res.steps} "
+        f"ms/step {out['wall_s'] * 1e3 / max(res.steps, 1):.2f} reports_s "
+        f"{out['reports_s']} (run_classify {total_s:.2f} s in all) "
+        f"launches {launches} max_memory_allocated {peak} bytes")
+    return out, res, launches
+
+
+def phase_scenario_card_vs_cpu(serve) -> None:
+    """Scenario reports on the card and on the CPU, equal on every field
+    of every task, and the serve JSON equal but for timings and the
+    launch counts (one stump launch on the card, none on the CPU)."""
+    skip = {"wall_s", "tasks_per_s", "device", "reports_s",
+            "kernel_launches"}
+    for scenario in ("boundary", "byzantine", "dropout"):
+        argv = with_flags(SCEN_ARGS, scenario=scenario, batch=4, m=512,
+                          features=4)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            args = serve.build_parser().parse_args(
+                with_flags(argv, device=dev))
+            out, _, _, reports = serve.run_classify(args)
+            outs[dev] = ({k: v for k, v in out.items() if k not in skip},
+                         reports, out["kernel_launches"]["stump"])
+        card, cpu = outs["cuda"], outs["cpu"]
+        check(card[0] == cpu[0], f"scenario {scenario}: card and CPU JSON "
+              f"differ: {card[0]} != {cpu[0]}")
+        check(card[1] == cpu[1], f"scenario {scenario}: card and CPU "
+              f"reports differ: {card[1]} != {cpu[1]}")
+        check((card[2], cpu[2]) == (1, 0),
+              f"scenario {scenario}: stump launches {card[2]}, {cpu[2]}")
+        log(f"card vs cpu, scenario {scenario}: JSON and {len(card[1])} "
+            f"reports equal (ok {card[0]['ok']} of 4)")
+
+
 def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
     """One path at full size through the serve entry point, every
     kernel's count set to 0 just before and read just after; checks
@@ -246,7 +501,7 @@ def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
     for _, ops in serve.KERNELS.values():
         ops.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    out, res, ts = serve.run_classify(args)
+    out, res, ts, _ = serve.run_classify(args)
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"{name}:", json.dumps(out))
@@ -294,7 +549,7 @@ def phase_profile(batched, serve, prng, tasks, argv, name,
     cls = serve.make_class(args)
     cfg = serve.make_config(args, cls)
     x, y, _ = tasks.make_batch(cls, args.batch, args.m, args.k, args.noise,
-                               seed0=args.seed)
+                               seed0=args.seed, scenario=args.scenario)
     x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     keys = prng.split(prng.key(args.seed, device="cuda"), args.batch)
     s = batched.init_state(x, y, keys, cfg, cls=cls, device="cuda")
@@ -621,6 +876,7 @@ def main() -> int:
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram import ref as hist_ref
     from repro_torch.kernels.mw_update import ops as mw_ops
+    from repro_torch.kernels.stump import ops as stump_ops
     from repro_torch.launch import serve
 
     def phase(name, fn, *a):
@@ -649,6 +905,7 @@ def main() -> int:
     entries = {"mw_update": phase("mw_update", phase_kernel, mw_ops),
                "histogram": phase("histogram", phase_histogram, hist_ops,
                                   hist_ref),
+               "stump": phase("stump", phase_stump, stump_ops),
                "flash_attention": phase("flash attention", phase_flash,
                                         flash_ops)}
     # 4. the integer-track path at full size
@@ -670,20 +927,32 @@ def main() -> int:
           TREE_ARGS, "tree", 5)
     # 6. LM serving at full width: this slice's main path
     lm_launches = phase("lm slice", phase_lm_slice, serve, models, layers)
-    # 7. card against CPU
+    # 7. the scenario path at full size: this slice's main path, then
+    # the infrastructure fault at a cut depth
+    _, _, scen_launches = phase("scenario slice", phase_scenario, serve,
+                                SCEN_ARGS, "scenario slice")
+    phase("scenario profile", phase_profile, batched, serve, prng, tasks,
+          SCEN_ARGS, "scenario (stumps)", 3)
+    _, _, drop_launches = phase("dropout run", phase_scenario, serve,
+                                DROP_ARGS, "dropout run")
+    # 8. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
+    phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
           flash_ops)
-    # 8. results: each kernel's top-level launches are its own path's
-    # (mw_update and histogram the tree path's, flash attention the LM
-    # path's), each path's own next to that path's timing
+    # 9. results: each kernel's top-level launches are its own main
+    # path's (mw_update and histogram the tree path's, stump the
+    # scenario path's, flash attention the LM path's), and every path's
+    # launches sit in its own entry of ``paths``
+    runs = {"thresholds": int_launches, "tree": launches,
+            "scenario": scen_launches, "dropout": drop_launches,
+            "lm": lm_launches}
     for name, entry in entries.items():
-        entry["launches"] = (lm_launches if name == "flash_attention"
-                             else launches)[name]
-        for path, counts in (("thresholds", int_launches),
-                             ("tree", launches), ("lm", lm_launches)):
+        entry["launches"] = runs[entry["path"]][name]
+        for path, counts in runs.items():
             if counts[name]:
-                entry["paths"][path]["launches"] = counts[name]
+                entry["paths"].setdefault(path, {})["launches"] = \
+                    counts[name]
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

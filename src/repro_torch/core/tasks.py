@@ -1,12 +1,19 @@
 """Synthetic learning tasks for the protocol track (counterpart of
-repro.core.tasks, without scenarios, which wait for ROADMAP queue 1,
-item 11).
+repro.core.tasks).
 
 The same numpy RNG calls in the same order as the reference, so the
 same seeds give identical arrays: a sample labelled by a random target
 from the class, exactly ``noise`` distinct labels flipped (OPT ≤
 noise), split among k players contiguously by sort order (the
-adversarial split).
+adversarial split).  ``make_batch(scenario=…)`` corrupts through
+:mod:`repro_torch.core.scenarios` instead.
+
+:func:`opt_counts` is OPT, the best uniform-weight error count of the
+class on the whole sample: the class's own ERM at weights 1/m, rounded
+(the reference's ``true_opt``), except for axis stumps, whose counts
+come exactly from one launch of the stump kernel.  ``pad_shards`` and
+``shard_chunk_feed`` wait for the streaming slice (ROADMAP queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -16,6 +23,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import weak
+from repro_torch.kernels.stump import ops as stump_ops
+
+# the pad threshold of the stump OPT: no finite point reaches it, so it
+# gives the two constant classifiers (the reference's j = K candidate)
+PAD_THETA = 3.4e38
+
 
 @dataclasses.dataclass
 class Task:
@@ -24,6 +38,8 @@ class Task:
     target_params: np.ndarray
     noise_count: int         # flipped labels (OPT ≤ this)
     cls: object
+    flipped: np.ndarray | None = None   # [k, m_loc] bool — planted noise
+    scenario: str = "uniform"           # which adversary corrupted S
 
     @property
     def flat_x(self):
@@ -68,12 +84,64 @@ def make_task(cls, m: int, k: int, noise: int, seed: int = 0,
 def make_batch(cls, B: int, m: int, k: int, noise: int, seed0: int = 0,
                adversarial_split: bool = True, scenario: str | None = None):
     """B independent tasks stacked for the batched engine: (x [B, k,
-    m/k(, F)], y [B, k, m/k], tasks), task b seeded ``seed0 + b``."""
+    m/k(, F)], y [B, k, m/k], tasks), task b seeded ``seed0 + b``.
+    ``scenario`` routes corruption through core/scenarios.py instead of
+    the uniform flips (None keeps the uniform flips' RNG stream)."""
     if scenario is not None:
-        raise NotImplementedError(
-            "scenarios need repro.core.scenarios, ROADMAP queue 1, "
-            "item 11")
+        from repro_torch.core import scenarios
+        spec = scenarios.ScenarioSpec(name=scenario, noise=noise)
+        return scenarios.make_scenario_batch(
+            cls, B, m, k, spec, seed0=seed0,
+            adversarial_split=adversarial_split)
     ts = [make_task(cls, m=m, k=k, noise=noise, seed=seed0 + b,
                     adversarial_split=adversarial_split)
           for b in range(B)]
     return (np.stack([t.x for t in ts]), np.stack([t.y for t in ts]), ts)
+
+
+def _stump_opt_counts(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Exact OPT of axis stumps on B samples: xs [B, m, F] float32,
+    ys [B, m] int8 → int64 [B], from one batched stump-kernel launch.
+
+    The thresholds are the points' own values plus :data:`PAD_THETA`:
+    every first occurrence of a sorted value and the constant, the
+    reference's candidates (duplicates only repeat one).  With w = 1
+    every partial sum is an integer below 2^24, so the errors
+    ½(m ∓ (2S − Σy)) are exact in any summation order.
+    """
+    B, m, F = xs.shape
+    if m >= 1 << 24:
+        raise ValueError(f"m = {m}: float32 counts are exact below 2^24")
+    pad = torch.full((B, F, 1), PAD_THETA, dtype=torch.float32,
+                     device=xs.device)
+    thetas = torch.cat([xs.transpose(1, 2), pad], dim=-1)    # [B, F, m+1]
+    w = torch.ones((B, m), dtype=torch.float32, device=xs.device)
+    err = stump_ops.stump_errors(xs, w, ys, thetas.contiguous())
+    return torch.round(err.reshape(B, -1).amin(dim=-1)).to(torch.int64)
+
+
+def opt_counts(cls, xs, ys, device="cpu") -> np.ndarray:
+    """OPT of ``cls`` on each of B samples of one size: xs [B, m(, F)],
+    ys [B, m] (numpy or tensors) → int64 [B] on the host.
+
+    Axis stumps take the exact counts of one stump-kernel launch
+    (:func:`_stump_opt_counts`); every other class runs its own ERM at
+    weights 1/m and rounds ``loss·m``, as the reference's ``true_opt``
+    does (exact for the integer classes, the greedy floor for trees).
+    """
+    xt = torch.as_tensor(xs, device=device)
+    yt = torch.as_tensor(ys, device=device)
+    if isinstance(cls, weak.AxisStumps):
+        return _stump_opt_counts(xt, yt).cpu().numpy()
+    m = yt.shape[-1]
+    w = torch.ones(yt.shape, dtype=torch.float32, device=device) / m
+    _, loss = cls.erm(xt, yt, w)
+    return np.array([int(round(float(v) * m)) for v in loss.cpu()],
+                    np.int64)
+
+
+def true_opt(task: Task, device="cpu") -> int:
+    """OPT of the task's own class on its whole sample (see
+    :func:`opt_counts`)."""
+    return int(opt_counts(task.cls, task.flat_x[None], task.flat_y[None],
+                          device)[0])

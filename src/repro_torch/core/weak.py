@@ -301,6 +301,12 @@ class AxisStumps:
     def erm(self, xs, ys, w):
         """The 1-D threshold ERM on every feature column at once
         (xs [B, K, F]), the best feature pinned to the lowest index."""
+        # Not the stump kernel: the center's weights mix·f32(1/c) take
+        # only k values, so candidates tie exactly, and the kernel's
+        # closed form ½(W ∓ (2S − Σwy)) rounds (and cancels near zero)
+        # otherwise than these prefix sums — it would break protocol
+        # parity with the reference.  The kernel computes exact OPT
+        # instead (tasks.opt_counts).
         thr = Thresholds(n=1 << self.value_bits)
         cols = xs.transpose(-1, -2)                          # [B, F, K]
         params_f, losses = thr.erm(cols, ys[..., None, :].expand_as(cols),
@@ -343,3 +349,12 @@ def ensemble_predict(cls, hyp_params: torch.Tensor, rounds: int,
         votes += cls.predict(hyp_params[t], x).to(torch.int32)
     one = torch.ones((), dtype=torch.int8, device=x.device)
     return torch.where(votes >= 0, one, -one)
+
+
+def empirical_errors(predict_pm: torch.Tensor, y: torch.Tensor,
+                     alive=None) -> torch.Tensor:
+    """E_S(f): the number of misclassified (alive) examples, int32."""
+    wrong = predict_pm != y
+    if alive is not None:
+        wrong = wrong & alive
+    return wrong.sum(dtype=torch.int32)

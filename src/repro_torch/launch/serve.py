@@ -9,7 +9,15 @@
   in the reference) runs ``reduced(cfg)``; ``--no-smoke`` runs the
   configuration at full width and depth.
 * ``--workload classify`` — a batch of AccuratelyClassify tasks through
-  the port's batched engine.
+  the port's batched engine.  ``--scenario`` picks an adversary
+  (core/scenarios.py): a noise model (uniform, targeted_heavy,
+  byzantine, boundary, drift), a planted tree concept (xor,
+  checkerboard, bands; ``--cls tree``), or an infrastructure fault
+  (dropout, flaky, rejoin) that silences ``--infra-player`` through the
+  engine's player schedule.  Each finished task is then held to
+  E_S(f) ≤ OPT — over the surviving shards under a fault — with OPT for
+  all tasks from one call (one stump-kernel launch for ``--cls
+  stumps``), after the timed run.
 
 Usage:
     python -m repro_torch.launch.serve --workload lm --arch deepseek-7b \\
@@ -22,11 +30,17 @@ Usage:
         --batch 16 --m 65536 --k 4 --noise 8
     python -m repro_torch.launch.serve --workload classify --device cpu \\
         --cls stumps --batch 4 --m 512
+    python -m repro_torch.launch.serve --workload classify --cls stumps \\
+        --scenario boundary --noise 8 --batch 16 --m 65536 --features 8
+    python -m repro_torch.launch.serve --workload classify --device cpu \\
+        --cls stumps --scenario dropout --batch 4 --m 512
 
 Each prints one JSON line with the reference's keys plus ``device`` and
 ``kernel_launches`` (the launches of each kernel the workload's path
-can reach, in the timed run; 0 on the CPU, where the plain versions
-run); ``lm`` adds ``flash``, ``classify`` adds ``steps``.  Prompt
+can reach, in the timed run and the reports after it; 0 on the CPU,
+where the plain versions run); ``lm`` adds ``flash``, ``classify``
+adds ``steps`` and, with ``--scenario``, ``reports_s`` (the seconds the
+reports took).  Prompt
 tokens come from ``np.random.default_rng(seed)`` and classify keys
 from ``split(key(seed), B)``, as in the reference.
 Runs are timed once, after the kernel libraries are built, each timed
@@ -44,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, models
-from repro_torch.core import batched, prng, tasks, weak
+from repro_torch.core import batched, prng, scenarios, tasks, weak
 from repro_torch.core.pinned import pinned_argmax
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
@@ -55,13 +69,16 @@ from repro_torch.kernels.histogram import kernel as hist_kernel
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import kernel as mw_kernel
 from repro_torch.kernels.mw_update import ops as mw_ops
+from repro_torch.kernels.stump import kernel as stump_kernel
+from repro_torch.kernels.stump import ops as stump_ops
 
 # every kernel the engine can launch: name → (kernel module, ops module)
 KERNELS = {"mw_update": (mw_kernel, mw_ops),
            "histogram": (hist_kernel, hist_ops),
+           "stump": (stump_kernel, stump_ops),
            "flash_attention": (flash_kernel, flash_ops)}
 # the kernels each workload's path can launch, which its JSON reports
-PATH_KERNELS = {"classify": ("mw_update", "histogram"),
+PATH_KERNELS = {"classify": ("mw_update", "histogram", "stump"),
                 "lm": ("flash_attention",)}
 
 _NOT_YET = {
@@ -141,44 +158,103 @@ def run_lm(args):
 
 
 def run_classify(args):
-    """Run B tasks to completion; returns (JSON dict, result, tasks)."""
+    """Run B tasks to completion; returns (JSON dict, result, tasks,
+    reports), ``reports`` the per-task guarantee reports of the finished
+    tasks under ``--scenario`` (None without one).
+
+    The reports follow the timed run, as in the reference: every
+    finished task's E_S(f) against OPT, over the surviving shards for an
+    infrastructure adversary (``dropout``/``flaky``/``rejoin``: the
+    tasks carry the usual ``--noise`` uniform flips and a player-alive
+    schedule silences ``--infra-player``)."""
     if args.engine != "batched":
         raise NotImplementedError(
             "--engine sharded comes with the mesh-sharded engine over "
             "torch.distributed, ROADMAP queue 1, item 9")
-    if args.scenario is not None:
-        raise NotImplementedError(
-            "--scenario needs repro.core.scenarios, ROADMAP queue 1, "
-            "item 11")
     dev = resolve_device(args.device)
     cls = make_class(args)
     cfg = make_config(args, cls)
-    x, y, ts = tasks.make_batch(cls, args.batch, args.m, args.k, args.noise,
-                                seed0=args.seed)
+    B = args.batch
+    infra = args.scenario if args.scenario in scenarios.INFRA else None
+    noise_scenario = None if infra else args.scenario
+    if noise_scenario in scenarios.FEATURE_SCENARIOS:
+        _check_feature_scenario(noise_scenario, args)
+    x, y, ts = tasks.make_batch(cls, B, args.m, args.k, args.noise,
+                                seed0=args.seed, scenario=noise_scenario)
+    player_sched = spec = None
+    if infra:
+        spec = scenarios.InfraSpec(
+            name=infra, player=args.infra_player,
+            drop_round=args.infra_round,
+            rejoin_round=args.infra_round + args.infra_gap,
+            miss_rate=args.infra_miss_rate)
+        player_sched = spec.schedule(args.k, seed=args.seed)
     _build_kernels(dev)
     xt = torch.as_tensor(x, device=dev)
     yt = torch.as_tensor(y, device=dev)
-    keys = prng.split(prng.key(args.seed, device=dev), args.batch)
+    keys = prng.split(prng.key(args.seed, device=dev), B)
     _sync(dev)
     for _, ops in KERNELS.values():
         ops.launches = 0
     t0 = time.perf_counter()
-    res = batched.run_accurately_classify_batched(xt, yt, keys, cfg, cls,
-                                                  device=dev)
+    res = batched.run_accurately_classify_batched(
+        xt, yt, keys, cfg, cls, player_sched=player_sched, device=dev)
     _sync(dev)
     wall = time.perf_counter() - t0
-    B = args.batch
     result = {
         "workload": "classify", "engine": args.engine, "batch": B,
         "m": args.m, "k": args.k, "class": args.cls,
-        "noise": args.noise, "scenario": "uniform",
+        "noise": args.noise, "scenario": args.scenario or "uniform",
         "ok": int(res.ok.sum()), "attempts_max": int(res.attempts.max()),
         "wall_s": round(wall, 4),
         "tasks_per_s": round(B / max(wall, 1e-9), 2),
         "device": dev.type, "steps": res.steps,
-        "kernel_launches": _launches("classify"),
     }
-    return result, res, ts
+    reports = None
+    t0 = time.perf_counter()
+    if infra:
+        reports = scenarios.infra_reports(ts, res, spec, seed=args.seed,
+                                          device=dev)
+        result["survivors"] = int(spec.survivors(
+            args.k, seed=args.seed).sum())
+        result["guarantee_ok_survivors"] = int(
+            sum(r["guarantee_ok"] for r in reports))
+        result["bits_max"] = max((r["bits"] for r in reports), default=0)
+    elif args.scenario is not None:
+        # the adversary decides how much it corrupts (byzantine flips a
+        # whole shard regardless of --noise): report what was planted
+        result["noise"] = max(int(t.noise_count) for t in ts)
+        reports = scenarios.scenario_reports(ts, res, device=dev)
+        result["guarantee_ok"] = int(sum(r["guarantee_ok"]
+                                         for r in reports))
+        result["recall_contradicted_min"] = round(
+            min((r["recall_contradicted"] for r in reports),
+                default=1.0), 3)
+        result["bits_max"] = max((r["bits"] for r in reports), default=0)
+    if reports is not None:
+        _sync(dev)
+        result["reports_s"] = round(time.perf_counter() - t0, 4)
+    result["kernel_launches"] = _launches("classify")
+    return result, res, ts, reports
+
+
+def _check_feature_scenario(name: str, args) -> None:
+    """Up-front validation of a planted-concept scenario: needs the
+    tree class at sufficient depth — fail at argument time, not deep
+    inside task construction."""
+    if args.cls != "tree":
+        raise SystemExit(
+            f"--scenario {name} plants a tree concept: run it "
+            "with --cls tree (--tree-depth/--tree-bins)")
+    need = scenarios.ScenarioSpec(name=name).min_tree_depth()
+    if args.tree_depth < need:
+        raise SystemExit(
+            f"--scenario {name} needs --tree-depth ≥ {need} "
+            f"(got {args.tree_depth})")
+    if name in ("xor", "checkerboard") and args.features < 2:
+        raise SystemExit(
+            f"--scenario {name} crosses two features: needs "
+            f"--features ≥ 2 (got {args.features})")
 
 
 def make_class(args):
@@ -234,7 +310,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--opt-budget", type=int, default=16)
     ap.add_argument("--engine", default="batched",
                     choices=["batched", "sharded"])
-    ap.add_argument("--scenario", default=None)
+    ap.add_argument("--scenario", default=None,
+                    choices=[None, "clean", "uniform", "targeted_heavy",
+                             "byzantine", "boundary", "drift",
+                             "xor", "checkerboard", "bands",
+                             "dropout", "flaky", "rejoin"])
+    # infrastructure adversaries (--scenario dropout/flaky/rejoin)
+    ap.add_argument("--infra-player", type=int, default=1,
+                    help="player the infra adversary silences")
+    ap.add_argument("--infra-round", type=int, default=5,
+                    help="wire round the player first goes absent")
+    ap.add_argument("--infra-gap", type=int, default=8,
+                    help="rejoin: rounds absent before returning")
+    ap.add_argument("--infra-miss-rate", type=float, default=0.3,
+                    help="flaky: per-round absence probability")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 

@@ -15,6 +15,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import ops as mw_ops
+from repro_torch.kernels.stump import ops as stump_ops
 from repro_torch.launch import serve
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,14 +29,20 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+missing = sorted(set(NEW) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
+# the modules of the scenario slice, which the walk must reach
+NEW = ("repro_torch.core.scenarios", "repro_torch.core.tasks",
+       "repro_torch.kernels.stump.kernel", "repro_torch.kernels.stump.ops",
+       "repro_torch.kernels.stump.ref")
 
 
 def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+    proc = subprocess.run([sys.executable, "-c",
+                           f"NEW = {NEW!r}\n" + _IMPORT_ALL], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -61,6 +68,14 @@ def test_cuda_entry_points_raise_without_a_card():
     w = torch.zeros((1, 1, 8))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         hist_ops.node_histograms(feats, w, w, 4, interpret=False)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        stump_ops.stump_scores(feats, w[:, 0], torch.zeros((1, 2, 3)),
+                               interpret=False)
+    args = serve.build_parser().parse_args(
+        ["--workload", "classify", "--cls", "stumps", "--scenario",
+         "dropout", "--m", "64"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_classify(args)
 
 
 def test_lm_entry_points_raise_without_a_card():

@@ -29,6 +29,7 @@ from repro.core.types import BoostConfig as JConfig
 from repro_torch.core import approximation, batched, classify, fp32
 from repro_torch.core import ledger, streaming, tasks, weak, weights
 from repro_torch.core.types import BoostConfig
+from repro_torch.launch import serve
 from repro_torch.weak_tree import HistogramTrees
 
 CLASSES = ("thresholds", "intervals", "singletons")
@@ -223,6 +224,9 @@ def test_slice_boundaries_raise_with_their_queue_item():
         streaming.sort_order(x, chunk_size=4)
     with pytest.raises(NotImplementedError, match="item 10"):
         HistogramTrees(num_features=4, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tasks.make_batch(weak.make_class("stumps", num_features=2), 1, 8,
-                         2, 0, scenario="byzantine")
+    # scenarios are ported (item 11); the sharded engine is not
+    args = serve.build_parser().parse_args(
+        ["--workload", "classify", "--device", "cpu", "--engine", "sharded",
+         "--scenario", "byzantine"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        serve.run_classify(args)

@@ -1,7 +1,9 @@
 """The port's hand-written kernels against their plain versions on the
-card: mw_update and the histogram bit for bit, flash attention at the
-reference's tolerances (2e-5 in float32, 2e-2 in bf16; the kernel sums
-in another order).  Every test here needs a CUDA device and skips on a
+card: mw_update and the histogram bit for bit, the stump contraction
+bit for bit on ±1 and dyadic weights and within rtol 1e-5 plus atol
+1e-6·Σ|wy| on float weights, flash attention at the reference's
+tolerances (2e-5 in float32, 2e-2 in bf16; the kernel sums in another
+order).  Every test here needs a CUDA device and skips on a
 host without one; the file imports no JAX, so it runs where only the
 port is installed:
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.mw_update import ops as mw_ops
+from repro_torch.kernels.stump import ops as stump_ops
 
 HIST_SHAPES = [  # G, N, c, F, Q
     (16, 1, 400, 8, 32), (16, 2, 400, 8, 32), (64, 2, 100, 8, 32),
@@ -27,6 +30,11 @@ FLASH_SHAPES = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
                 (1, 256, 2, 2, 128), (4, 2048, 32, 32, 128),
                 (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# B, c, F, Q: the reference's stump cases (tests/test_kernels.py), a
+# ragged c, F and Q, and the scenario slice's OPT at m = 2^14
+STUMP_SHAPES = [(1, 32, 1, 8), (1, 257, 9, 130), (3, 129, 9, 127),
+                (4, 33, 3, 17), (2, 3001, 5, 1001), (1, 1, 1, 1),
+                (4, 1 << 14, 8, (1 << 14) + 1)]
 
 
 @pytest.fixture
@@ -92,3 +100,37 @@ def test_flash_attention_kernel_matches_plain_version(card, shape, dtype,
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["pm1", "dyadic", "float"])
+@pytest.mark.parametrize("shape", STUMP_SHAPES, ids=str)
+def test_stump_kernel_matches_plain_version(card, shape, weights):
+    B, c, F, Q = shape
+    g = torch.Generator(device=card).manual_seed(c + F + Q)
+    x = torch.randn((B, c, F), generator=g, device=card) * 10
+    x[..., ::7, :] = torch.round(x[..., ::7, :])        # ties with θ
+    th = torch.randn((B, F, Q), generator=g, device=card) * 10
+    th[..., ::5] = 3.4e38                               # the pad
+    th[..., 1::5] = torch.round(th[..., 1::5])
+    sign = torch.where(torch.rand((B, c), generator=g, device=card) < 0.5,
+                       -1.0, 1.0)
+    if weights == "pm1":
+        wy = sign
+    elif weights == "dyadic":
+        wy = sign * torch.ldexp(torch.ones_like(sign), -torch.randint(
+            0, 7, (B, c), generator=g, device=card))
+    else:
+        wy = sign * torch.rand((B, c), generator=g, device=card)
+    before = stump_ops.launches
+    got = stump_ops.stump_scores(x, wy, th)
+    torch.cuda.synchronize()
+    assert stump_ops.launches == before + 1
+    want = stump_ops.stump_scores(x, wy, th, interpret=True)
+    if weights == "float":
+        atol = 1e-6 * wy.abs().sum(-1).max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    else:
+        assert torch.equal(got, want)
+    one = stump_ops.stump_scores(x[0], wy[0], th[0])
+    assert torch.equal(one, got[0])

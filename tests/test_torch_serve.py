@@ -25,14 +25,16 @@ def test_serve_classify_cpu_prints_one_json_line():
     out = json.loads(lines[0])
     assert out["ok"] == out["batch"] == 3
     assert out["device"] == "cpu"
-    assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0}
+    assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0,
+                                      "stump": 0}
     assert out["steps"] > 0 and out["tasks_per_s"] > 0
 
 
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "sharded"], "item 9"),
-    (["--scenario", "byzantine"], "item 11"),
-    (["--cls", "tree", "--scenario", "xor"], "item 11"),
+    (["--engine", "sharded", "--scenario", "byzantine"], "item 9"),
+    (["--engine", "sharded", "--cls", "tree", "--scenario", "xor"],
+     "item 9"),
 ])
 def test_serve_names_the_queue_item_of_what_is_not_ported(flags, item):
     args = serve.build_parser().parse_args(
@@ -61,7 +63,8 @@ def test_serve_feature_track_cpu_prints_one_json_line(flags):
     out = json.loads(lines[0])
     assert out["class"] == flags[1] and out["batch"] == 2
     assert 1 <= out["ok"] <= 2 and out["steps"] > 0
-    assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0}
+    assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0,
+                                      "stump": 0}
 
 
 def test_serve_lm_cpu_prints_one_json_line():
