@@ -52,7 +52,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 # mw_update shapes [B·k player rows, examples per player] of each path
-MW_SHAPES = {"thresholds": (64, 1 << 18), "tree": (64, 1 << 14)}
+# (the scenario slice runs at the tree slice's [64, 2^14])
+MW_SHAPES = {"thresholds": (64, 1 << 18), "tree": (64, 1 << 14),
+             "dropout": (64, 1 << 12)}
 SLICE_ARGS = ["--workload", "classify", "--cls", "thresholds", "--batch",
               "16", "--m", str(1 << 20), "--k", "4", "--noise", "8",
               "--domain", "65536", "--coreset", "100", "--opt-budget",
@@ -106,6 +108,7 @@ STUMP_CASES = [(None, 32, 1, 8, "sweep"), (None, 128, 8, 128, "sweep"),
                (4, 33, 3, 17, "edge"), (2, 129, 9, 130, "negative"),
                (2, 3001, 5, 1001, "edge")]
 STUMP_MAIN = (16, 1 << 16, 8, (1 << 16) + 1)   # B, c, F, Q of the OPT launch
+STUMP_DROP = (16, 12288, 8, 12289)             # the dropout run's: 3 of 4 shards
 STUMP_SMALL = (1, 1 << 14, 8, (1 << 14) + 1)   # the step matrix fits: 8.6 GB
 LM_TOL = 2e-2                      # tests/test_kernels.py model-path tolerance
 LM_REL_L2_GATE = 5e-2              # flash vs einsum prefill, last-token logits
@@ -322,19 +325,38 @@ def opt_inputs(B, c, F, seed):
     return x, wy, th
 
 
-def stump_work(B, c, F, Q) -> tuple[int, int]:
-    """(FLOP, bytes): a compare and an add per (point, threshold) pair;
-    x, wy and thetas read once, S written once, in float32."""
-    return 2 * B * c * F * Q, 4 * (B * c * F + B * c + 2 * B * F * Q)
+def stump_work(B, c, F, Q) -> tuple[int, int, int]:
+    """(operations, dense FLOP, bytes) of S = Σ wy·1[x ≥ θ].  The least
+    operations: sort each (task, feature) column, prefix-sum wy along
+    it and binary-search each θ, c·lg c + c + Q·lg c per column.  The
+    dense form, a compare and an add per (point, threshold) pair, is
+    what this kernel does, printed beside the bound.  Bytes: x, wy and
+    thetas read once, S written once, in float32."""
+    lg = max(1, math.ceil(math.log2(c)))
+    ops = B * F * (c * lg + c + Q * lg)
+    return ops, 2 * B * c * F * Q, 4 * (B * c * F + B * c + 2 * B * F * Q)
+
+
+def stump_bound(B, c, F, Q) -> tuple[float, str, float]:
+    """(bound_ms, bound_by, dense_bound_ms) at one shape."""
+    ops, dense, nbytes = stump_work(B, c, F, Q)
+    ops_ms = ops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms > bytes_ms else "bytes",
+            max(dense / FP32_FLOPS * 1e3, bytes_ms))
 
 
 def phase_stump(ops) -> dict:
     """The stump kernel against its plain version: bitwise on ±1 and
     dyadic weights, within rtol 1e-5 plus atol 1e-6·Σ|wy| on float
-    weights, at the reference's cases, a ragged shape and the scenario
-    slice's OPT shape; timed at the OPT shape (the plain version and
-    torch.matmul on a materialised step matrix at a smaller stated
-    shape).  Returns its JSON entry (without launches)."""
+    weights, at the reference's cases, a ragged shape and the OPT shapes
+    of the scenario slice and the dropout run; timed at both OPT shapes
+    (torch.matmul on a materialised step matrix at a smaller stated
+    shape).  The bound is that of the function, the sort-based
+    operation count or the bytes, whichever takes longer; the dense
+    design's is printed beside it.  Returns its JSON entry (without
+    launches)."""
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the plain version would drop bits")
     max_abs = 0.0
@@ -356,25 +378,36 @@ def phase_stump(ops) -> dict:
             max_abs = max(max_abs, err)
         log(f"stump {case}: ±1 and dyadic bitwise, float within "
             f"tolerance")
-    B, c, F, Q = STUMP_MAIN
-    x, wy, th = opt_inputs(B, c, F, seed=9)
-    got = ops.stump_scores(x, wy, th)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = ops.stump_scores(x, wy, th, interpret=True)   # one run: seconds
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    check(torch.equal(got, want), "stump not bitwise at the OPT shape")
-    log(f"stump OPT shape {list(STUMP_MAIN)}, ±1 weights: bitwise")
-    del want
-    kernel_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=5, warm=1)
-    flops, nbytes = stump_work(B, c, F, Q)
-    ops_ms = flops / FP32_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    del x, wy, th, got
+    paths = {}
+    for path, shape, seed in (("scenario", STUMP_MAIN, 9),
+                              ("dropout", STUMP_DROP, 11)):
+        B, c, F, Q = shape
+        x, wy, th = opt_inputs(B, c, F, seed=seed)
+        got = ops.stump_scores(x, wy, th)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ops.stump_scores(x, wy, th, interpret=True)  # one run: seconds
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check(torch.equal(got, want),
+              f"stump not bitwise at the {path} OPT shape {list(shape)}")
+        del want, got
+        kernel_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=5,
+                            warm=1)
+        bound_ms, bound_by, dense_ms = stump_bound(*shape)
+        nops, flops, nbytes = stump_work(*shape)
+        log(f"stump {path} OPT shape {list(shape)}, ±1 weights: bitwise; "
+            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} (one run) "
+            f"bound_ms {bound_ms:.4f} by {bound_by} ({nbytes} bytes, "
+            f"{nops} operations sorted) share_of_bound "
+            f"{bound_ms / kernel_ms:.6f}; dense_bound_ms {dense_ms:.4f} "
+            f"({flops} FLOP at the float32 peak, this kernel's design)")
+        paths[path] = {"shape": list(shape), "ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "dense_bound_ms": dense_ms}
+        del x, wy, th
     b1, c1, f1, q1 = STUMP_SMALL
     x, wy, th = opt_inputs(b1, c1, f1, seed=10)
     small_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=10)
@@ -389,42 +422,36 @@ def phase_stump(ops) -> dict:
           "torch.matmul on the step matrix disagrees with the kernel")
     del step, lib
     torch.cuda.empty_cache()
-    small_bound = max(stump_work(*STUMP_SMALL)[0] / FP32_FLOPS,
-                      stump_work(*STUMP_SMALL)[1] / HBM_BYTES_PER_S) * 1e3
-    log(f"stump OPT shape {list(STUMP_MAIN)}: kernel_ms {kernel_ms:.4f} "
-        f"plain_ms {plain_ms:.4f} (one run) bound_ms {bound_ms:.4f} "
-        f"({flops} FLOP at the float32 peak {ops_ms:.4f} ms, {nbytes} "
-        f"bytes {bytes_ms:.4f} ms) share_of_bound "
-        f"{bound_ms / kernel_ms:.4f}")
+    small_bound, _, small_dense = stump_bound(*STUMP_SMALL)
     log(f"stump at {list(STUMP_SMALL)}: kernel_ms {small_ms:.4f} plain_ms "
         f"{small_plain_ms:.4f} library_ms {library_ms:.4f} (torch.matmul, "
-        f"step matrix built outside) bound_ms {small_bound:.4f}")
-    # ms, plain_ms and bound_ms at the OPT shape; no single library call
-    # fits there (its step matrix would take 2.2 TB), so library_ms is
-    # taken at library_shape, beside the kernel's and plain version's
+        f"step matrix built outside) bound_ms {small_bound:.4f} "
+        f"dense_bound_ms {small_dense:.4f}")
+    # ms, plain_ms and bound_ms at the scenario slice's OPT shape; no
+    # single library call fits there (its step matrix would take 2.2 TB),
+    # so library_ms is taken at library_shape, beside the kernel's and
+    # plain version's
+    main = paths["scenario"]
     return {"name": "stump", "route": "cuda",
             "source": "src/repro_torch/kernels/stump/csrc/stump.cu",
             "replaces": "src/repro/kernels/stump/kernel.py:91 "
                         "(and :54, the same kernel at B = 1)",
-            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": max_abs, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "dense_bound_ms": main["dense_bound_ms"],
             "library_ms": library_ms, "library_shape": list(STUMP_SMALL),
             "at_library_shape": {"ms": small_ms, "plain_ms": small_plain_ms,
-                                 "bound_ms": small_bound},
-            "path": "scenario",
-            "paths": {"scenario": {"shape": list(STUMP_MAIN),
-                                   "ms": kernel_ms, "plain_ms": plain_ms,
-                                   "bound_ms": bound_ms}}}
+                                 "bound_ms": small_bound,
+                                 "dense_bound_ms": small_dense},
+            "path": "scenario", "paths": paths}
 
 
-def phase_scenario(serve, argv, name) -> tuple[dict, object, dict]:
-    """The scenario path through the serve entry point, every kernel's
-    count set to 0 just before and read just after: one stump launch
-    (the OPT of every finished task), one mw_update per step, and every
-    finished task with E_S(f) ≤ OPT — over the surviving shards for an
-    infrastructure fault, and OPT ≤ the planted noise for a noise
-    adversary.  Returns (serve JSON, result, launches)."""
+def drive(serve, argv, name):
+    """One classify run through the serve entry point, every kernel's
+    count set to 0 just before and read just after; checks the counts
+    against the JSON's and one mw_update launch per engine step.
+    Returns (args, serve JSON, result, tasks, reports, launches)."""
     args = serve.build_parser().parse_args(argv)
     for _, ops in serve.KERNELS.values():
         ops.launches = 0
@@ -433,13 +460,27 @@ def phase_scenario(serve, argv, name) -> tuple[dict, object, dict]:
     out, res, ts, reports = serve.run_classify(args)
     total_s = time.perf_counter() - t0
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated()
     log(f"{name}:", json.dumps(out))
     check(launches == {**out["kernel_launches"], "flash_attention": 0},
           f"{name}: launch counts {launches} != {out['kernel_launches']}")
     check(launches["mw_update"] == res.steps,
           f"{name}: mw_update launches {launches['mw_update']} != engine "
           f"steps {res.steps}")
+    log(f"{name}: ok {out['ok']} of {args.batch}, tasks_per_s "
+        f"{out['tasks_per_s']} wall_s {out['wall_s']} steps {res.steps} "
+        f"ms/step {out['wall_s'] * 1e3 / max(res.steps, 1):.2f} "
+        f"run_classify {total_s:.2f} s in all, launches {launches} "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    return args, out, res, ts, reports, launches
+
+
+def phase_scenario(serve, argv, name) -> tuple[dict, object, dict]:
+    """The scenario path through :func:`drive`: one stump launch (the
+    OPT of every finished task), and every finished task with E_S(f) ≤
+    OPT — over the surviving shards for an infrastructure fault, and
+    OPT ≤ the planted noise for a noise adversary.  Returns (serve
+    JSON, result, launches)."""
+    args, out, res, ts, reports, launches = drive(serve, argv, name)
     check(out["ok"] >= 1, f"{name}: no task finished")
     check(launches["stump"] == 1,
           f"{name}: {launches['stump']} stump launches, not 1")
@@ -457,11 +498,7 @@ def phase_scenario(serve, argv, name) -> tuple[dict, object, dict]:
                   f"{name} task {b}: OPT {r['opt']} > planted noise "
                   f"{ts[b].noise_count}")
         log(f"{name} task {b}: {json.dumps(r)}")
-    log(f"{name}: ok {out['ok']} of {args.batch}, tasks_per_s "
-        f"{out['tasks_per_s']} wall_s {out['wall_s']} steps {res.steps} "
-        f"ms/step {out['wall_s'] * 1e3 / max(res.steps, 1):.2f} reports_s "
-        f"{out['reports_s']} (run_classify {total_s:.2f} s in all) "
-        f"launches {launches} max_memory_allocated {peak} bytes")
+    log(f"{name}: reports_s {out['reports_s']}")
     return out, res, launches
 
 
@@ -493,23 +530,10 @@ def phase_scenario_card_vs_cpu(serve) -> None:
 
 
 def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
-    """One path at full size through the serve entry point, every
-    kernel's count set to 0 just before and read just after; checks
-    E_S(f) ≤ planted noise and the ledger against Theorem 4.1 on every
-    task that finished.  Returns (serve JSON, result, launches)."""
-    args = serve.build_parser().parse_args(argv)
-    for _, ops in serve.KERNELS.values():
-        ops.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    out, res, ts, _ = serve.run_classify(args)
-    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"{name}:", json.dumps(out))
-    check(launches == {**out["kernel_launches"], "flash_attention": 0},
-          f"{name}: launch counts {launches} != {out['kernel_launches']}")
-    check(launches["mw_update"] == res.steps,
-          f"{name}: mw_update launches {launches['mw_update']} != engine "
-          f"steps {res.steps}")
+    """One path at full size through :func:`drive`; checks E_S(f) ≤
+    planted noise and the ledger against Theorem 4.1 on every task that
+    finished.  Returns (serve JSON, result, launches)."""
+    args, out, res, ts, _, launches = drive(serve, argv, name)
     cls = serve.make_class(args)
     cfg = serve.make_config(args, cls)
     for b, task in enumerate(ts):
@@ -531,10 +555,6 @@ def phase_slice(serve, ledger, argv, name) -> tuple[dict, object, dict]:
             f"{int(res.rounds[b])} E_S(f) {errs} <= noise "
             f"{task.noise_count}; ledger {bits} <= theorem 4.1 bound "
             f"{bound:.0f}")
-    log(f"{name}: ok {out['ok']} of {args.batch}, tasks_per_s "
-        f"{out['tasks_per_s']} wall_s {out['wall_s']} steps {res.steps} "
-        f"ms/step {out['wall_s'] * 1e3 / max(res.steps, 1):.2f} launches "
-        f"{launches} max_memory_allocated {peak} bytes")
     return out, res, launches
 
 

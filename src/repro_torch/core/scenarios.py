@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import classify, tasks, weak
+from repro_torch.device import resolve_device
 
 SCENARIOS = ("clean", "uniform", "targeted_heavy", "byzantine",
              "boundary", "drift")
@@ -384,11 +385,12 @@ def make_feature_task(cls, m: int, k: int, spec: ScenarioSpec,
     return task
 
 
-def planted_errors(task: tasks.Task, device="cpu") -> int:
+def planted_errors(task: tasks.Task, device=None) -> int:
     """Errors of the PLANTED concept on the (corrupted) sample — an
     in-class witness, so true OPT ≤ this (= noise_count when every flip
     lands on a distinct point).  The greedy tree ERM floor
     (:func:`class_floor`) can sit above true OPT; this cannot."""
+    device = resolve_device(device)
     pred = task.cls.predict(
         torch.as_tensor(task.target_params, device=device),
         torch.as_tensor(task.flat_x, device=device))
@@ -396,7 +398,7 @@ def planted_errors(task: tasks.Task, device="cpu") -> int:
         pred, torch.as_tensor(task.flat_y, device=device)))
 
 
-def class_floor(task: tasks.Task, cls=None, device="cpu") -> int:
+def class_floor(task: tasks.Task, cls=None, device=None) -> int:
     """Best full-sample uniform-weight error count ``cls`` reaches on
     the task (default: the task's own class) — exact OPT for the
     closed-form 1-D classes and stumps (the stump kernel's counts), the
@@ -508,43 +510,47 @@ def _survivor_sample(task: tasks.Task, surv: np.ndarray):
 
 
 def infra_report(task: tasks.Task, result, b: int, spec: InfraSpec,
-                 seed: int = 0, opt: int | None = None,
-                 device="cpu") -> dict:
+                 seed: int = 0, device=None) -> dict:
     """Guarantee stats of one fault-injected task, over the shards of
     surviving players only: E_S(f) vs OPT restricted to those shards,
-    with the dispute vote counting surviving copies.  ``opt`` is that
-    OPT when the caller has it (:func:`infra_reports`)."""
-    surv = spec.survivors(task.y.shape[0], seed=seed)
-    res = result.per_task(b, player_mask=surv)
-    f = classify.make_classifier(task.cls, res)
-    xs, ys = _survivor_sample(task, surv)
-    if opt is None:
-        opt = _opts(task.cls, [xs], [ys], device)[0]
-    errs = _errors(f, xs, ys, device)
-    return {
-        "infra": spec.name,
-        "survivors": int(surv.sum()),
-        "errors": errs,
-        "opt": opt,
-        "guarantee_ok": errs <= opt,
-        "attempts": res.attempts,
-        "disputed": int(res.dispute_count),
-        "bits": res.ledger.total_bits,
-    }
+    with the dispute vote counting surviving copies."""
+    return _infra_reports([task], result, [b], spec, seed, device)[0]
 
 
 def infra_reports(ts, result, spec: InfraSpec, seed: int = 0,
-                  device="cpu") -> list[dict]:
+                  device=None) -> list[dict]:
     """:func:`infra_report` of every finished task, in task order; their
     survivor OPTs come from one :func:`tasks.opt_counts` call (one stump
     launch for axis stumps)."""
     done = [b for b in range(len(ts)) if result.ok[b]]
+    return _infra_reports([ts[b] for b in done], result, done, spec, seed,
+                          device)
+
+
+def _infra_reports(ts, result, lanes, spec, seed, device) -> list[dict]:
+    device = resolve_device(device)
+    if not ts:
+        return []
     surv = spec.survivors(ts[0].y.shape[0], seed=seed)
-    samples = [_survivor_sample(ts[b], surv) for b in done]
+    samples = [_survivor_sample(t, surv) for t in ts]
     opts = _opts(ts[0].cls, [s[0] for s in samples],
                  [s[1] for s in samples], device)
-    return [infra_report(ts[b], result, b, spec, seed=seed, opt=o,
-                         device=device) for b, o in zip(done, opts)]
+    out = []
+    for task, b, (xs, ys), opt in zip(ts, lanes, samples, opts):
+        res = result.per_task(b, player_mask=surv)
+        errs = _errors(classify.make_classifier(task.cls, res), xs, ys,
+                       device)
+        out.append({
+            "infra": spec.name,
+            "survivors": int(surv.sum()),
+            "errors": errs,
+            "opt": opt,
+            "guarantee_ok": errs <= opt,
+            "attempts": res.attempts,
+            "disputed": int(res.dispute_count),
+            "bits": res.ledger.total_bits,
+        })
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -606,39 +612,46 @@ def quarantine_recall(dispute_x: np.ndarray, target_pts: np.ndarray,
 
 
 def scenario_report(task: tasks.Task, result, b: int | None = None,
-                    opt: int | None = None, device="cpu") -> dict:
+                    device=None) -> dict:
     """Guarantee stats of one solved task: E_S(f) vs OPT, quarantine
     recall on contradicted/planted points.  ``result`` is a batched
-    result with lane b, or a ClassifyResult when b is None; ``opt`` is
-    the task's OPT when the caller has it (:func:`scenario_reports`)."""
+    result with lane b, or a ClassifyResult when b is None."""
     res = result.per_task(b) if b is not None else result
-    f = classify.make_classifier(task.cls, res)
-    errs = _errors(f, task.flat_x, task.flat_y, device)
-    if opt is None:
-        opt = tasks.true_opt(task, device)
-    contr = contradicted_points(task)
-    return {
-        "scenario": task.scenario,
-        "errors": errs,
-        "opt": opt,
-        "guarantee_ok": errs <= opt,
-        "attempts": res.attempts,
-        "disputed": int(res.dispute_count),
-        "contradicted": int(contr.shape[0]),
-        "recall_contradicted": quarantine_recall(
-            np.asarray(res.dispute_x), contr),
-        "recall_planted": quarantine_recall(
-            np.asarray(res.dispute_x), planted_points(task)),
-        "bits": res.ledger.total_bits,
-    }
+    return _scenario_reports([task], [res], device)[0]
 
 
-def scenario_reports(ts, result, device="cpu") -> list[dict]:
+def scenario_reports(ts, result, device=None) -> list[dict]:
     """:func:`scenario_report` of every finished task, in task order;
     their OPTs come from one :func:`tasks.opt_counts` call (one stump
     launch for axis stumps)."""
     done = [b for b in range(len(ts)) if result.ok[b]]
-    opts = _opts(ts[0].cls, [ts[b].flat_x for b in done],
-                 [ts[b].flat_y for b in done], device)
-    return [scenario_report(ts[b], result, b, opt=o, device=device)
-            for b, o in zip(done, opts)]
+    return _scenario_reports([ts[b] for b in done],
+                             [result.per_task(b) for b in done], device)
+
+
+def _scenario_reports(ts, results, device) -> list[dict]:
+    device = resolve_device(device)
+    if not ts:
+        return []
+    opts = _opts(ts[0].cls, [t.flat_x for t in ts], [t.flat_y for t in ts],
+                 device)
+    out = []
+    for task, res, opt in zip(ts, results, opts):
+        f = classify.make_classifier(task.cls, res)
+        errs = _errors(f, task.flat_x, task.flat_y, device)
+        contr = contradicted_points(task)
+        out.append({
+            "scenario": task.scenario,
+            "errors": errs,
+            "opt": opt,
+            "guarantee_ok": errs <= opt,
+            "attempts": res.attempts,
+            "disputed": int(res.dispute_count),
+            "contradicted": int(contr.shape[0]),
+            "recall_contradicted": quarantine_recall(
+                np.asarray(res.dispute_x), contr),
+            "recall_planted": quarantine_recall(
+                np.asarray(res.dispute_x), planted_points(task)),
+            "bits": res.ledger.total_bits,
+        })
+    return out

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import weak
+from repro_torch.device import resolve_device
 from repro_torch.kernels.stump import ops as stump_ops
 
 # the pad threshold of the stump OPT: no finite point reaches it, so it
@@ -120,15 +121,17 @@ def _stump_opt_counts(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
     return torch.round(err.reshape(B, -1).amin(dim=-1)).to(torch.int64)
 
 
-def opt_counts(cls, xs, ys, device="cpu") -> np.ndarray:
+def opt_counts(cls, xs, ys, device=None) -> np.ndarray:
     """OPT of ``cls`` on each of B samples of one size: xs [B, m(, F)],
-    ys [B, m] (numpy or tensors) → int64 [B] on the host.
+    ys [B, m] (numpy or tensors) → int64 [B] on the host, computed on
+    ``device`` (the card unless the caller asks for ``cpu``).
 
     Axis stumps take the exact counts of one stump-kernel launch
     (:func:`_stump_opt_counts`); every other class runs its own ERM at
     weights 1/m and rounds ``loss·m``, as the reference's ``true_opt``
     does (exact for the integer classes, the greedy floor for trees).
     """
+    device = resolve_device(device)
     xt = torch.as_tensor(xs, device=device)
     yt = torch.as_tensor(ys, device=device)
     if isinstance(cls, weak.AxisStumps):
@@ -140,7 +143,7 @@ def opt_counts(cls, xs, ys, device="cpu") -> np.ndarray:
                     np.int64)
 
 
-def true_opt(task: Task, device="cpu") -> int:
+def true_opt(task: Task, device=None) -> int:
     """OPT of the task's own class on its whole sample (see
     :func:`opt_counts`)."""
     return int(opt_counts(task.cls, task.flat_x[None], task.flat_y[None],

@@ -3,13 +3,14 @@
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs, models
-from repro_torch.core import batched, prng, weak
+from repro_torch.core import batched, prng, scenarios, tasks, weak
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -76,6 +77,29 @@ def test_cuda_entry_points_raise_without_a_card():
          "dropout", "--m", "64"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run_classify(args)
+
+
+def test_opt_and_reports_default_to_the_card():
+    """OPT and the guarantee reports run where the entry points do:
+    called without a device on a host with no card, they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for "
+                    "hosts without one")
+    cls = weak.AxisStumps(num_features=2)
+    task = tasks.make_task(cls, m=16, k=2, noise=1, seed=0)
+    none_ok = SimpleNamespace(ok=np.zeros(1, bool))
+    spec = scenarios.InfraSpec(name="dropout", player=1, drop_round=1)
+    for call in (lambda: tasks.true_opt(task),
+                 lambda: tasks.opt_counts(cls, task.flat_x[None],
+                                          task.flat_y[None]),
+                 lambda: scenarios.planted_errors(task),
+                 lambda: scenarios.class_floor(task),
+                 lambda: scenarios.scenario_reports([task], none_ok),
+                 lambda: scenarios.infra_reports([task], none_ok, spec)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert tasks.true_opt(task, "cpu") == \
+        scenarios.class_floor(task, device="cpu") <= 1
 
 
 def test_lm_entry_points_raise_without_a_card():

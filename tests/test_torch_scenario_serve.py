@@ -85,9 +85,9 @@ def test_scenario_serve_equals_the_reference(case, monkeypatch):
     if "survivors" in out:
         spec = scenarios.InfraSpec(name=out["scenario"], player=1,
                                    drop_round=5, rejoin_round=13)
-        alone = scenarios.infra_report(ts[b], res, b, spec)
+        alone = scenarios.infra_report(ts[b], res, b, spec, device="cpu")
     else:
-        alone = scenarios.scenario_report(ts[b], res, b)
+        alone = scenarios.scenario_report(ts[b], res, b, device="cpu")
     assert alone == reports[0]
     if "--cls" in argv and argv[argv.index("--cls") + 1] == "stumps" \
             and "boundary" in argv:

@@ -103,7 +103,8 @@ def test_feature_concepts_give_identical_tasks(scenario, noise_kind):
             assert noise_kind == "targeted_heavy", ref
             continue
         _assert_tasks_equal(ref, got)
-        assert scenarios.planted_errors(got) == j_scen.planted_errors(ref)
+        assert scenarios.planted_errors(got, device="cpu") == \
+            j_scen.planted_errors(ref)
 
 
 def test_feature_concepts_refuse_what_the_reference_refuses():
@@ -215,15 +216,16 @@ def test_planted_errors_and_class_floors_are_equal(scenario, floor_cls):
     for seed in (0, 1):
         ref = j_scen.make_scenario_task(cj, M, K, spec_j, seed=seed)
         got = scenarios.make_scenario_task(ct, M, K, spec_t, seed=seed)
-        assert scenarios.planted_errors(got) == j_scen.planted_errors(ref)
+        assert scenarios.planted_errors(got, device="cpu") == \
+            j_scen.planted_errors(ref)
         if floor_cls == "own":
             want = j_scen.class_floor(ref)
-            assert scenarios.class_floor(got) == want
-            assert tasks.true_opt(got) == j_tasks.true_opt(ref) == want
+            assert scenarios.class_floor(got, device="cpu") == want
+            assert tasks.true_opt(got, "cpu") == j_tasks.true_opt(ref) == want
         else:
             want = j_scen.class_floor(ref, j_weak.AxisStumps(num_features=4))
             assert scenarios.class_floor(
-                got, weak.AxisStumps(num_features=4)) == want
+                got, weak.AxisStumps(num_features=4), "cpu") == want
             assert want >= 0.25 * M or scenario != "xor"
 
 
@@ -237,4 +239,5 @@ def test_class_floors_of_noisy_tasks_are_equal(cls_name):
         got = scenarios.make_scenario_task(
             ct, M, K, scenarios.ScenarioSpec(name=scenario, noise=20),
             seed=4)
-        assert scenarios.class_floor(got) == j_scen.class_floor(ref)
+        assert scenarios.class_floor(got, device="cpu") == \
+            j_scen.class_floor(ref)

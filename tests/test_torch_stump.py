@@ -152,7 +152,7 @@ def test_stump_opt_equals_the_references_true_opt(m, scenario):
         ref_task, task = _stump_task(m, seed, scenario)
         np.testing.assert_array_equal(ref_task.x, task.x)
         np.testing.assert_array_equal(ref_task.y, task.y)
-        assert tasks.true_opt(task) == j_tasks.true_opt(ref_task)
+        assert tasks.true_opt(task, "cpu") == j_tasks.true_opt(ref_task)
     assert ops.launches == before          # the plain version ran
 
 
@@ -160,7 +160,7 @@ def test_stump_opt_counts_of_a_batch_equal_each_tasks():
     pairs = [_stump_task(1536, seed) for seed in range(3)]
     ts = [t for _, t in pairs]
     got = tasks.opt_counts(ts[0].cls, np.stack([t.flat_x for t in ts]),
-                           np.stack([t.flat_y for t in ts]))
+                           np.stack([t.flat_y for t in ts]), "cpu")
     assert got.dtype == np.int64
     assert got.tolist() == [j_tasks.true_opt(r) for r, _ in pairs]
 
@@ -171,8 +171,8 @@ def test_stump_opt_of_constant_features():
     x = np.zeros((1, 6, 2), np.float32)
     y = np.ones((1, 6), np.int8)
     y[0, 3] = -1
-    assert tasks.opt_counts(weak.AxisStumps(num_features=2), x,
-                            y).tolist() == [1]
+    assert tasks.opt_counts(weak.AxisStumps(num_features=2), x, y,
+                            "cpu").tolist() == [1]
     y[:] = -1
-    assert tasks.opt_counts(weak.AxisStumps(num_features=2), x,
-                            y).tolist() == [0]
+    assert tasks.opt_counts(weak.AxisStumps(num_features=2), x, y,
+                            "cpu").tolist() == [0]
