@@ -4,16 +4,18 @@
 
 Builds the hand-written kernels from this checkout's sources (one nvcc
 per source, all at once), holds each against its plain PyTorch version
-on the card, and drives the port's paths through
-``repro_torch.launch.serve``:
+on the card (flash attention on both routes: ``wgmma`` for bf16,
+``cuda_cores`` for float32), checks with ``cuobjdump -sass`` that the
+bf16 flash kernels are built from wgmma and TMA (HGMMA, UTMALDG), and
+drives the port's paths through ``repro_torch.launch.serve``:
 
 * the integer track — thresholds, B = 16 tasks of m = 2^20 examples;
 * the feature track — HistogramTrees (F = 8, depth 2, 32 bins, coreset
   wire mode), B = 16 tasks of m = 2^16 examples;
 * LM serving — deepseek-7b at full width and depth (30 layers, d_model
   4096), 4 prompts of 2048 tokens prefilled through the flash kernel
-  and 32 tokens decoded greedily, checked against an einsum prefill of
-  the same params and tokens;
+  (every launch on its wgmma route) and 32 tokens decoded greedily,
+  checked against an einsum prefill of the same params and tokens;
 * the scenario path — AxisStumps (F = 8) against the ``boundary``
   adversary, B = 16 tasks of m = 2^16, every finished task held to
   E_S(f) ≤ OPT with OPT of all tasks from one stump-kernel launch; and
@@ -41,6 +43,8 @@ import dataclasses
 import json
 import math
 import os
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -76,7 +80,11 @@ LM_ARGS = ["--workload", "lm", "--arch", "deepseek-7b", "--no-smoke",
 FLASH_SWEEP = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
                (1, 256, 2, 2, 128)]
 FLASH_MAIN = (4, 2048, 32, 32, 128)
-FLASH_WIDE = [FLASH_MAIN, (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128)]
+FLASH_QWEN = (1, 2048, 64, 8, 80)
+# bf16 only (the wgmma route): then S under 64, hd 256 (the widest
+# tile plan) and G = 8 at hd 128
+FLASH_WIDE = [FLASH_MAIN, FLASH_QWEN, (1, 2000, 8, 2, 128),
+              (2, 40, 4, 2, 64), (1, 300, 4, 2, 256), (1, 384, 16, 2, 128)]
 SCEN_ARGS = ["--workload", "classify", "--cls", "stumps", "--scenario",
              "boundary", "--noise", "8", "--batch", "16", "--m",
              str(1 << 16), "--k", "4", "--features", "8", "--coreset",
@@ -254,19 +262,30 @@ def phase_histogram(ops, ref) -> dict:
                         warm=5)
     plain_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q,
                                                    interpret=True), reps=20)
-    onehot = (ref.bin_index(x, Q)[..., None] == torch.arange(
-        Q, device="cuda")).float().reshape(G, c, F * Q)
-    both = torch.cat([w, wy], dim=1)                      # [G, 2N, c]
-    library_ms = time_ms(lambda: torch.matmul(both, onehot), reps=50,
-                         warm=5)
+    bins = torch.arange(Q, device="cuda")
+
+    def torch_calls():
+        """The whole function in PyTorch calls, binning and one-hot
+        included: no single call computes it."""
+        onehot = (ref.bin_index(x, Q)[..., None] == bins).float()
+        return torch.matmul(torch.cat([w, wy], dim=1),
+                            onehot.reshape(G, c, F * Q))
+
+    torch_ms = time_ms(torch_calls, reps=50, warm=5)
+    kw, kwy = ops.node_histograms(x, w, wy, Q)
+    tw, twy = torch_calls().reshape(G, 2 * N, F, Q).split(N, dim=1)
+    check(torch.allclose(tw, kw, rtol=1e-5, atol=1e-6)
+          and torch.allclose(twy, kwy, rtol=1e-5, atol=1e-6),
+          "the histogram in PyTorch calls disagrees with the kernel")
     bytes_moved = 4 * (G * c * F + 2 * G * N * c + 2 * G * N * F * Q)
     adds = 2 * G * N * c * F          # each point into one bin per feature
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"histogram main shape G={G} N={N} c={c} F={F} Q={Q}: kernel_ms "
-        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} (torch.matmul, one-hot built outside) bound_us "
+        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no "
+        f"single call); torch_calls_ms {torch_ms:.4f} (binning, one-hot "
+        f"and torch.matmul, all timed) bound_us "
         f"{bound_ms * 1e3:.4f} ({bytes_moved} bytes, {adds} adds)")
     return {"name": "histogram", "route": "cuda",
             "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
@@ -274,7 +293,7 @@ def phase_histogram(ops, ref) -> dict:
             "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms, "path": "tree",
+            "library_ms": None, "torch_calls_ms": torch_ms, "path": "tree",
             "paths": {"tree": {"shape": [G, N, c, F, Q], "ms": kernel_ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms}}}
 
@@ -665,11 +684,79 @@ def flash_work(B, S, H, KV, hd) -> tuple[int, int]:
                                         + 2 * B * S * KV * hd)
 
 
-def phase_flash(ops) -> dict:
+def flash_sass(kernel, build) -> dict:
+    """``cuobjdump -sass`` of the built flash library: every kernel of
+    the wgmma route (bf16) must hold HGMMA (wgmma) and UTMALDG (TMA
+    loads), and the library must name no cuBLAS or cuDNN.  Returns the
+    instruction counts per kernel."""
+    lib = build.build_all([kernel.SOURCE])[0][0]
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", block))
+                        for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    wgmma = {n: c for n, c in counts.items() if "flash_wgmma" in n}
+    check(len(wgmma) == 4, f"flash SASS: {len(wgmma)} wgmma kernels, not "
+          f"one per tile plan: {list(counts)}")
+    for name, c in wgmma.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"flash SASS: {name} lacks HGMMA or UTMALDG: {c}")
+        log(f"flash SASS {name}: {c}")
+    blob = lib.read_bytes().lower()
+    check(b"cublas" not in blob and b"cudnn" not in blob,
+          "the flash library names cuBLAS or cuDNN")
+    return {n[-60:]: c for n, c in wgmma.items()}
+
+
+def time_flash(ops, kernel, shape, dtype, seed) -> dict:
+    """Kernel, plain version and SDPA (``scaled_dot_product_attention``,
+    causal, GQA) on one shape, with the bound of the function."""
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(*shape, dtype, seed=seed)
+    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v), reps=20)
+    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, interpret=True),
+                       reps=5, warm=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=KV != H), reps=20)
+    lib_err = (sdpa(qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+               .transpose(1, 2).float()
+               - ops.flash_attention(q, k, v).float()).abs().max().item()
+    flops, nbytes = flash_work(*shape)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    ops_ms = flops / peak * 1e3
+    bytes_ms = nbytes * (q.element_size() // 2) / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    route = kernel.ROUTES[dtype]
+    log(f"flash attention {list(shape)} {str(dtype)[6:]} route {route}: "
+        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (scaled_dot_product_attention; max abs "
+        f"difference from the kernel {lib_err:.3g}) bound_ms "
+        f"{bound_ms:.4f} ({flops} FLOP at {peak / 1e12:.0f} TFLOP/s "
+        f"{ops_ms:.4f} ms, {bytes_ms:.4f} ms of bytes) share_of_bound "
+        f"{bound_ms / kernel_ms:.4f}, {library_ms / kernel_ms:.3f} of SDPA's "
+        f"speed")
+    return {"shape": list(shape), "dtype": str(dtype)[6:],
+            "kernel_route": route, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": bound_ms / kernel_ms}
+
+
+def phase_flash(ops, kernel, build) -> dict:
     """The flash kernel against its plain version (full softmax in
-    float32) at the reference's sweep, the LM slice's shape, qwen3-32b's
-    widths and a ragged S; timed at the slice's shape beside the plain
-    version and SDPA.  Returns its JSON entry (without launches)."""
+    float32) at the reference's sweep in both types (float32 on the
+    CUDA-core route at 2e-5, bf16 on the wgmma route at 2e-2), the LM
+    slice's shape, qwen3-32b's widths, a ragged S, S under 64, hd 256
+    and G = 8; the SASS of the wgmma route; timed at the slice's shape
+    and qwen3-32b's beside the plain version and SDPA, and the float32
+    route at the slice's shape.  Returns its JSON entry (without
+    launches)."""
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     cases = [(shape, dt, w) for shape in FLASH_SWEEP for dt in tol
              for w in (0, 48)]
@@ -687,35 +774,24 @@ def phase_flash(ops) -> dict:
               f"flash attention differs from its plain version at "
               f"{shape} {dt} window {window}: max_abs_err {err}")
         max_abs = max(max_abs, err)
-        log(f"flash attention {list(shape)} {str(dt)[6:]} window {window}: "
-            f"max_abs_err {err:.3g} <= {tol[dt]}")
-    q, k, v = flash_inputs(*FLASH_MAIN, torch.bfloat16, seed=7)
-    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v), reps=20)
-    plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, interpret=True),
-                       reps=5, warm=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), reps=20)
-    flops, nbytes = flash_work(*FLASH_MAIN)
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"flash attention main shape {list(FLASH_MAIN)} bf16: kernel_ms "
-        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} (scaled_dot_product_attention) bound_ms "
-        f"{bound_ms:.4f} ({flops} FLOP at bf16 peak {ops_ms:.4f} ms, "
-        f"{nbytes} bytes {bytes_ms:.4f} ms) share_of_bound "
-        f"{bound_ms / kernel_ms:.4f}")
+        log(f"flash attention {list(shape)} {str(dt)[6:]} window {window} "
+            f"route {kernel.ROUTES[dt]}: max_abs_err {err:.3g} <= "
+            f"{tol[dt]}")
+    sass = flash_sass(kernel, build)
+    main = time_flash(ops, kernel, FLASH_MAIN, torch.bfloat16, seed=7)
+    qwen = time_flash(ops, kernel, FLASH_QWEN, torch.bfloat16, seed=8)
+    fp32 = time_flash(ops, kernel, FLASH_MAIN, torch.float32, seed=9)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-            "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms, "path": "lm",
-            "paths": {"lm": {"shape": list(FLASH_MAIN), "ms": kernel_ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms}}}
+            "max_abs_err": max_abs, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "kernel_route": main["kernel_route"],
+            "share_of_bound": main["share_of_bound"], "path": "lm",
+            "paths": {"lm": main}, "qwen3_32b_widths": qwen,
+            "float32_route": fp32, "sass": sass}
 
 
 @contextlib.contextmanager
@@ -739,28 +815,36 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def phase_lm_slice(serve, models, layers) -> dict:
+def phase_lm_slice(serve, models, layers) -> tuple[dict, dict]:
     """deepseek-7b at full width and depth through ``serve --workload
     lm``: every kernel's count set to 0 just before and read just after
-    (one flash launch per layer of the one prefill); finite logits and
-    tokens; the flash prefill's last-token logits against an einsum
-    prefill of the same params and tokens, and both against a prefill
-    with float32 products; a profile of one prefill and a few decode
-    steps.  Returns the launches."""
+    (one flash launch per layer of the one prefill, every one on the
+    wgmma route); finite logits and tokens; the flash prefill's
+    last-token logits against an einsum prefill of the same params and
+    tokens, and both against a prefill with float32 products; a profile
+    of one prefill and a few decode steps, with flash's share of the
+    prefill's device time.  Returns the launches and flash's launches
+    per route."""
     from torch.profiler import ProfilerActivity, profile
 
     args = serve.build_parser().parse_args(LM_ARGS)
+    flash_ops = serve.KERNELS["flash_attention"][1]
     for _, ops in serve.KERNELS.values():
         ops.launches = 0
+    flash_ops.route_launches = dict.fromkeys(flash_ops.route_launches, 0)
     torch.cuda.reset_peak_memory_stats()
     out, run = serve.run_lm(args)
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    routes = dict(flash_ops.route_launches)
     peak = torch.cuda.max_memory_allocated()
     log("lm slice:", json.dumps(out))
     cfg = run.model.cfg
     check(out["kernel_launches"]["flash_attention"]
           == launches["flash_attention"] == cfg.num_layers,
           f"lm slice: flash launches {launches} != {cfg.num_layers} layers")
+    check(routes == {"wgmma": cfg.num_layers, "cuda_cores": 0},
+          f"lm slice: flash routes {routes}, not all {cfg.num_layers} on "
+          f"the wgmma route")
     check(launches["mw_update"] == launches["histogram"] == 0,
           f"lm slice launched a protocol kernel: {launches}")
     check(cfg.d_model == 4096 and cfg.num_layers == 30,
@@ -773,8 +857,8 @@ def phase_lm_slice(serve, models, layers) -> dict:
     params = run.params
     log(f"lm slice: {cfg.name} {cfg.param_count()} params, prefill_s "
         f"{out['prefill_s']} decode_s_per_token "
-        f"{out['decode_s_per_token']} launches {launches} "
-        f"max_memory_allocated {peak} bytes")
+        f"{out['decode_s_per_token']} launches {launches} flash routes "
+        f"{routes} max_memory_allocated {peak} bytes")
     flash_logits, tokens = run.prefill_logits, run.tokens
     del run
     torch.cuda.synchronize()
@@ -823,16 +907,20 @@ def phase_lm_slice(serve, models, layers) -> dict:
                 "device time not measured (no kernels recorded)")
             continue
         dev_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
+        flash_ms = sum(e.self_device_time_total for e in rows
+                       if "flash_wgmma" in e.key) / steps / 1e3
         log(f"profile lm {name}: wall_ms/step {wall_ms:.2f} (profiled), "
             f"device_ms/step {dev_ms:.3f}, device busy share "
             f"{dev_ms / wall_ms:.3f}, kernels/step "
-            f"{sum(e.count for e in rows) / steps:.0f}")
+            f"{sum(e.count for e in rows) / steps:.0f}; flash (wgmma "
+            f"route) {flash_ms:.3f} ms/step, {flash_ms / dev_ms:.4f} of "
+            f"the device time")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
                 f"x{e.count / steps:5.0f}  {e.key[:90]}")
     del params, model, logits
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes
 
 
 def to_device(tree, dev):
@@ -892,6 +980,7 @@ def main() -> int:
     from repro_torch.core import batched, ledger, prng, tasks, weak
     from repro_torch.models import layers
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram import ref as hist_ref
@@ -927,7 +1016,7 @@ def main() -> int:
                                   hist_ref),
                "stump": phase("stump", phase_stump, stump_ops),
                "flash_attention": phase("flash attention", phase_flash,
-                                        flash_ops)}
+                                        flash_ops, flash_kernel, _build)}
     # 4. the integer-track path at full size
     _, _, int_launches = phase("thresholds slice", phase_slice, serve,
                                ledger, SLICE_ARGS, "thresholds slice")
@@ -946,7 +1035,9 @@ def main() -> int:
     phase("tree profile", phase_profile, batched, serve, prng, tasks,
           TREE_ARGS, "tree", 5)
     # 6. LM serving at full width: this slice's main path
-    lm_launches = phase("lm slice", phase_lm_slice, serve, models, layers)
+    lm_launches, lm_routes = phase("lm slice", phase_lm_slice, serve,
+                                   models, layers)
+    entries["flash_attention"]["route_launches"] = lm_routes
     # 7. the scenario path at full size: this slice's main path, then
     # the infrastructure fault at a cut depth
     _, _, scen_launches = phase("scenario slice", phase_scenario, serve,

@@ -6,7 +6,9 @@ any device) goes to the plain version in ``ref.py``; a CUDA tensor goes
 to the hand-written kernel and nowhere else — a failed build or launch
 raises.  ``launches`` counts kernel launches (the plain version never
 adds to it), so a run can show that its main path went through the
-kernel.  The kernel reads the model layout directly and masks the
+kernel, and ``route_launches`` splits them by the kernel's route
+(``kernel.ROUTES``: ``"wgmma"`` for bf16, ``"cuda_cores"`` for
+float32).  The kernel reads the model layout directly and masks the
 ragged edge itself, so nothing is padded or transposed on the card.
 """
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels.flash_attention import ref
 
 launches = 0
+route_launches = {"wgmma": 0, "cuda_cores": 0}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,14 +56,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the flash attention kernel takes q, k and v of "
                         f"one type in {list(kernel.DTYPES)}, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd % 8 or hd > kernel.MAX_HEAD_DIM:
-        raise ValueError(f"the flash attention kernel takes a head_dim "
-                         f"that is a multiple of 8 up to "
-                         f"{kernel.MAX_HEAD_DIM}, got {hd}")
+    kernel.plan(hd, q.dtype)                 # raises on a head dim it refuses
     q, k, v = (kernel.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() and k.shape[1]:
-        kernel.launch(q, k, v, out, window, torch.cuda.current_stream(
-            q.device))
+        route = kernel.launch(q, k, v, out, window,
+                              torch.cuda.current_stream(q.device))
         launches += 1
+        route_launches[route] += 1
     return out

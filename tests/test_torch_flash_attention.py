@@ -6,8 +6,11 @@ it on the card.  Here the plain version is held to the JAX oracle
 ``flash_attention_ref`` and the wrapper to the Pallas kernel in
 interpret mode, over the reference's own sweep
 (tests/test_kernels.py::test_flash_attention_sweep) at its tolerances:
-2e-5 in float32, 2e-2 in bf16.
+2e-5 in float32, 2e-2 in bf16.  The kernel's routes and tile plans,
+which are Python, are checked here too.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as j_ops
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
-from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.flash_attention import kernel, ops, ref
 
 torch.set_num_threads(1)
 
@@ -99,3 +102,70 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                             torch.zeros((1, 8, 3, 16)))
     out = ops.flash_attention(q, q, q, interpret=True)
     assert out.shape == q.shape
+
+
+# the CUDA kernel's launch geometry, which the CPU reaches: the route
+# each type takes and the tile plan of every head dim the wrapper takes
+
+HEAD_DIMS = list(range(8, kernel.MAX_HEAD_DIM + 1, 8))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_cores")],
+                         ids=str)
+def test_route_follows_the_input_type(dtype, route):
+    assert kernel.ROUTES[dtype] == route
+    assert {kernel.plan(hd, dtype).route for hd in HEAD_DIMS} == {route}
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_wgmma_tile_plan_fits_the_card(hd):
+    p = kernel.plan(hd, torch.bfloat16)
+    assert p.smem_bytes <= kernel.SMEM_LIMIT == 232_448
+    assert p.threads == 384 and p.block_q == 128     # producer + 2 × 64 rows
+    assert p.head_dim_padded >= hd and p.head_dim_padded % 64 == 0
+    assert p.head_dim_padded - hd < 64
+    assert 2 <= p.stages <= kernel.MAX_STAGES
+    # wgmma m64nNk16: N a multiple of 8 up to 256, a K step of 16 bf16
+    assert kernel.K_STEP == 16
+    assert p.mma_n == (p.block_k, 64)
+    for n in p.mma_n:
+        assert n % 8 == 0 and 8 <= n <= 256
+    assert p.head_dim_padded % kernel.K_STEP == 0       # QKᵀ's depth
+    assert p.block_k % kernel.K_STEP == 0               # PV's depth
+    q_bytes = p.block_q * p.head_dim_padded * 2
+    stage_bytes = 2 * p.block_k * p.head_dim_padded * 2
+    assert p.smem_bytes == (kernel.SMEM_ALIGN + q_bytes + kernel.BARRIER_BYTES
+                            + p.stages * stage_bytes)
+    # one more stage would not fit, unless the ring is at its cap
+    assert (p.stages == kernel.MAX_STAGES
+            or p.smem_bytes + stage_bytes > kernel.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_core_tile_plan_fits_the_card(hd):
+    p = kernel.plan(hd, torch.float32)
+    assert p.smem_bytes <= kernel.SMEM_LIMIT
+    assert (p.block_q, p.block_k, p.threads, p.mma_n) == (64, 64, 256, ())
+    assert hd <= p.head_dim_padded < 2 * hd or p.head_dim_padded == 16
+    assert p.head_dim_padded in (16, 32, 64, 128, 256)
+
+
+def test_the_source_builds_every_wgmma_plan():
+    """The C entry point refuses a plan it has no instance of: each
+    padded head dim's (HDP, BK, stages) is one ``launch_plan`` there."""
+    src = kernel.SOURCE.read_text()
+    built = {tuple(int(x) for x in m) for m in re.findall(
+        r"launch_plan<(\d+), (\d+), (\d+)>", src)}
+    wanted = {(p.head_dim_padded, p.block_k, p.stages)
+              for p in (kernel.plan(hd, torch.bfloat16) for hd in HEAD_DIMS)}
+    assert built == wanted
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    for hd in (0, 12, 260, 264):
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+                kernel.plan(hd, dtype)
+    with pytest.raises(TypeError, match="flash attention kernel takes"):
+        kernel.plan(128, torch.float16)

@@ -2,10 +2,11 @@
 card: mw_update and the histogram bit for bit, the stump contraction
 bit for bit on ±1 and dyadic weights and within rtol 1e-5 plus atol
 1e-6·Σ|wy| on float weights, flash attention at the reference's
-tolerances (2e-5 in float32, 2e-2 in bf16; the kernel sums in another
-order).  Every test here needs a CUDA device and skips on a
-host without one; the file imports no JAX, so it runs where only the
-port is installed:
+tolerances (2e-5 in float32 on its CUDA-core route, 2e-2 in bf16 on its
+wgmma route; the kernel sums in another order, and the wgmma route
+rounds P to bf16 before P·V).  Every test here needs a CUDA device and
+skips on a host without one; the file imports no JAX, so it runs where
+only the port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -24,11 +25,13 @@ HIST_SHAPES = [  # G, N, c, F, Q
     (16, 1, 400, 8, 32), (16, 2, 400, 8, 32), (64, 2, 100, 8, 32),
     (5, 4, 77, 3, 8), (3, 2, 1000, 3, 8), (2, 2, 300, 40, 64)]
 # B, S, H, KV, hd: the reference's sweep (tests/test_kernels.py), the
-# deepseek-7b slice, qwen3-32b's attention widths (GQA, G = 8, hd 80)
-# and a ragged S
+# deepseek-7b slice, qwen3-32b's attention widths (GQA, G = 8, hd 80),
+# a ragged S, S under 64, hd 256 (the widest plan) and G = 8 at hd 128
 FLASH_SHAPES = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
                 (1, 256, 2, 2, 128), (4, 2048, 32, 32, 128),
-                (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128)]
+                (1, 2048, 64, 8, 80), (1, 2000, 8, 2, 128),
+                (2, 40, 4, 2, 64), (1, 300, 4, 2, 256),
+                (1, 384, 16, 2, 128)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # B, c, F, Q: the reference's stump cases (tests/test_kernels.py), a
 # ragged c, F and Q, and the scenario slice's OPT at m = 2^14
@@ -100,6 +103,25 @@ def test_flash_attention_kernel_matches_plain_version(card, shape, dtype,
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_counts_each_route(card):
+    """bf16 launches take the wgmma route, float32 the CUDA-core one;
+    the plain version adds to neither."""
+    counts = []
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        q = torch.randn((1, 130, 4, 64), device=card).to(dtype)
+        before = dict(flash_ops.route_launches), flash_ops.launches
+        flash_ops.flash_attention(q, q, q)
+        flash_ops.flash_attention(q, q, q, interpret=True)
+        counts.append({r: n - before[0][r]
+                       for r, n in flash_ops.route_launches.items()})
+        assert flash_ops.launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert counts == [{"wgmma": 1, "cuda_cores": 0},
+                      {"wgmma": 0, "cuda_cores": 1},
+                      {"wgmma": 1, "cuda_cores": 0}]
 
 
 @pytest.mark.cuda
