@@ -4,12 +4,16 @@
 
 Builds the hand-written kernels from this checkout's sources (one nvcc
 per source, all at once), holds each against its plain PyTorch version
-on the card (flash attention on both routes: ``wgmma`` for bf16,
-``cuda_cores`` for float32), checks with ``cuobjdump -sass`` that the
-bf16 flash kernels are built from wgmma and TMA (HGMMA, UTMALDG), and
-drives the port's paths through ``repro_torch.launch.serve``:
+on the card (mw_update unshifted and shifted; the stump's sort route
+on special values too; flash attention on both routes: ``wgmma`` for
+bf16, ``cuda_cores`` for float32), checks with ``cuobjdump -sass``
+that the bf16 flash kernels are built from wgmma and TMA (HGMMA,
+UTMALDG), and drives the port's paths through
+``repro_torch.launch.serve``:
 
-* the integer track — thresholds, B = 16 tasks of m = 2^20 examples;
+* the integer track — thresholds, B = 16 tasks of m = 2^20 examples,
+  then B = 4 tasks of m = 2^22 (132 rounds, past the 126 hits an
+  unshifted float32 weight sum could hold), every task ok;
 * the feature track — HistogramTrees (F = 8, depth 2, 32 bins, coreset
   wire mode), B = 16 tasks of m = 2^16 examples;
 * LM serving — deepseek-7b at full width and depth (30 layers, d_model
@@ -24,13 +28,13 @@ drives the port's paths through ``repro_torch.launch.serve``:
 
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
-port's CPU run on the three integer classes, on AxisStumps and on
-HistogramTrees in its three wire modes, the scenario reports of
-``boundary``, ``byzantine`` and ``dropout`` against the CPU's, and the
-card's LM logits against the CPU's on reduced deepseek-7b and
-qwen3-32b.  Prints the
-card, each phase's seconds, the kernels' numbers as one JSON line, and,
-last, one JSON object with ``"ok": true``.  Any failed check exits
+port's CPU run on the three integer classes, on AxisStumps, on
+HistogramTrees in its three wire modes and on a 240-round thresholds
+run, the scenario reports of ``boundary``, ``byzantine`` and
+``dropout`` against the CPU's, and the card's LM logits against the
+CPU's on reduced deepseek-7b and qwen3-32b.  Prints the card, each
+phase's seconds, the kernels' numbers as one JSON line, and, last, one
+JSON object with ``"ok": true``.  Any failed check exits
 non-zero before that line; so does a host with no CUDA device.
 Imports nothing of JAX.
 """
@@ -103,9 +107,15 @@ def with_flags(argv, **flags) -> list[str]:
 # the infrastructure run: depth (m) cut to 2^14 to stay in the time
 # limit; 3 of 4 shards survive, m_s = 12,288, not a power of two
 DROP_ARGS = with_flags(SCEN_ARGS, scenario="dropout", m=1 << 14)
+# past the old 126-round cap: B = 4 tasks of m = 2^22 (T = ⌈6·22⌉ = 132
+# rounds), the rest as the thresholds slice
+LARGE_ARGS = with_flags(SLICE_ARGS, batch=4, m=1 << 22)
 # stump cases, (B or None for the unbatched form, c, F, Q, kind): the
 # reference's (tests/test_kernels.py: sweep, block edges, all-negative
-# weights, duplicated thresholds, batched grid), then a ragged shape
+# weights, duplicated thresholds, batched grid), then a ragged shape;
+# special values (±0.0, ±inf, NaN in x and θ, the 3.4e38 pad), columns
+# of one repeated value, c across the sort's 4096-key tiles, c past
+# 16·8192 (a sampled key every 32nd) and Q past 65535
 STUMP_CASES = [(None, 32, 1, 8, "sweep"), (None, 128, 8, 128, "sweep"),
                (None, 257, 9, 130, "sweep"), (None, 512, 16, 256, "sweep"),
                (None, 127, 7, 127, "edge"), (None, 129, 9, 129, "edge"),
@@ -114,7 +124,11 @@ STUMP_CASES = [(None, 32, 1, 8, "sweep"), (None, 128, 8, 128, "sweep"),
                (None, 64, 4, 6, "duplicates"), (1, 127, 7, 129, "edge"),
                (3, 129, 9, 127, "edge"), (2, 128, 8, 128, "edge"),
                (4, 33, 3, 17, "edge"), (2, 129, 9, 130, "negative"),
-               (2, 3001, 5, 1001, "edge")]
+               (2, 3001, 5, 1001, "edge"),
+               (None, 1, 1, 1, "specials"), (None, 300, 5, 40, "specials"),
+               (3, 1000, 8, 257, "specials"), (2, 4097, 3, 65, "constant"),
+               (None, 64, 4, 6, "constant"), (1, 8193, 33, 100, "edge"),
+               (1, 140001, 2, 500, "specials"), (1, 5000, 2, 70000, "edge")]
 STUMP_MAIN = (16, 1 << 16, 8, (1 << 16) + 1)   # B, c, F, Q of the OPT launch
 STUMP_DROP = (16, 12288, 8, 12289)             # the dropout run's: 3 of 4 shards
 STUMP_SMALL = (1, 1 << 14, 8, (1 << 14) + 1)   # the step matrix fits: 8.6 GB
@@ -152,46 +166,67 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
 
 
 def mw_inputs(R: int, m: int, seed: int, dead_row=False, alive_row=False,
-              max_hits=120):
+              max_hits=120, past_126=False):
+    """hits, correct, alive [R, m] and each row's least alive hit count
+    (the shift the engine passes; int32 max on a dead row).
+    ``past_126`` puts every row's hits in 120–420."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     hits = torch.randint(0, max_hits + 1, (R, m), generator=g,
                          device="cuda", dtype=torch.int32)
+    if past_126:
+        hits = hits + torch.randint(120, 300, (R, 1), generator=g,
+                                    device="cuda", dtype=torch.int32)
     correct = torch.rand((R, m), generator=g, device="cuda") < 0.7
     alive = torch.rand((R, m), generator=g, device="cuda") < 0.95
     if dead_row:
         alive[0] = False
     if alive_row:
         alive[-1] = True
-    return hits, correct, alive
+    shift = torch.where(alive, hits, torch.iinfo(torch.int32).max).amin(-1)
+    return hits, correct, alive, shift
 
 
 def phase_kernel(ops) -> dict:
     """mw_update against its plain version at each path's shape and at
-    ragged shapes, timed at each path's shape; returns its JSON entry
-    (without launches), its top-level numbers the tree path's."""
+    ragged shapes, unshifted and shifted by each row's least alive hit
+    count (hits past 126 too, where only the shifted sum stays in
+    float32's range), timed shifted at each path's shape as the engine
+    calls it; returns its JSON entry (without launches), its top-level
+    numbers the tree path's."""
     cases = [dict(R=R, m=m) for R, m in MW_SHAPES.values()] + [
         dict(R=5, m=3001, dead_row=True, alive_row=True),
         dict(R=3, m=2048 * 3 + 1, max_hits=126),
-        dict(R=2, m=7, dead_row=True)]
+        dict(R=2, m=7, dead_row=True),
+        dict(R=64, m=1 << 14, past_126=True),
+        dict(R=5, m=3001, dead_row=True, past_126=True)]
     max_abs = 0.0
     for i, case in enumerate(cases):
         R, m = case.pop("R"), case.pop("m")
-        hits, correct, alive = mw_inputs(R, m, seed=i, **case)
-        kh, kw = ops.mw_update(hits, correct, alive)
-        torch.cuda.synchronize()
-        rh, rw = ops.mw_update(hits, correct, alive, interpret=True)
-        check(torch.equal(kh, rh), f"mw_update new_hits differ at [{R}, {m}]")
-        check(torch.equal(kw, rw), f"mw_update wsum not bitwise at [{R}, {m}]")
-        err = (kw.double() - rw.double()).abs().max().item()
-        max_abs = max(max_abs, err)
-        log(f"mw_update [{R}, {m}]: new_hits and wsum bitwise")
+        hits, correct, alive, hmin = mw_inputs(R, m, seed=i, **case)
+        shifts = ((hmin,) if case.get("past_126") else (None, hmin))
+        for shift in shifts:
+            kh, kw = ops.mw_update(hits, correct, alive, shift)
+            torch.cuda.synchronize()
+            rh, rw = ops.mw_update(hits, correct, alive, shift,
+                                   interpret=True)
+            how = "unshifted" if shift is None else "shifted"
+            check(torch.equal(kh, rh),
+                  f"mw_update new_hits differ at [{R}, {m}] {how}")
+            check(torch.equal(kw, rw),
+                  f"mw_update wsum not bitwise at [{R}, {m}] {how}")
+            err = (kw.double() - rw.double()).abs().max().item()
+            max_abs = max(max_abs, err)
+            past = " hits past 126" if case.get("past_126") else ""
+            log(f"mw_update [{R}, {m}] {how}{past}: new_hits and wsum "
+                f"bitwise")
     paths = {}
     for path, (R, m) in MW_SHAPES.items():
-        hits, correct, alive = mw_inputs(R, m, seed=0)
-        kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive))
-        plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
+        hits, correct, alive, hmin = mw_inputs(R, m, seed=0)
+        kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
+                                                  hmin))
+        plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive, hmin,
                                                  interpret=True), reps=20)
-        bytes_moved = R * m * (4 + 1 + 1 + 4) + R * 4
+        bytes_moved = R * m * (4 + 1 + 1 + 4) + R * (4 + 4)
         bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         log(f"mw_update {path} shape [{R}, {m}]: kernel_ms {kernel_ms:.4f} "
             f"plain_ms {plain_ms:.4f} bound_us {bound_ms * 1e3:.2f} "
@@ -298,9 +333,15 @@ def phase_histogram(ops, ref) -> dict:
                                "plain_ms": plain_ms, "bound_ms": bound_ms}}}
 
 
+STUMP_SPECIALS = (0.0, -0.0, math.inf, -math.inf, math.nan, 3.4e38, -3.4e38)
+
+
 def stump_inputs(B, c, F, Q, kind, weights, seed):
     """x [(B,) c, F], wy [(B,) c], thetas [(B,) F, Q] on the card, the
-    thresholds holding the 3.4e38 pad and values equal to points'."""
+    thresholds holding the 3.4e38 pad and values equal to points'.
+    ``specials`` puts ±0.0, ±inf, NaN and ±3.4e38 among the points and
+    the thresholds; ``constant`` gives every column one repeated value,
+    with thresholds at it and one float step either side."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     lead = () if B is None else (B,)
     if kind == "duplicates":
@@ -309,6 +350,15 @@ def stump_inputs(B, c, F, Q, kind, weights, seed):
         th = torch.randint(0, 8, lead + (F, 1), generator=g,
                            device="cuda").float().expand(
                                lead + (F, Q)).contiguous()
+    elif kind == "constant":
+        v = torch.randint(-4, 4, lead + (1, F), generator=g,
+                          device="cuda").float()
+        x = v.expand(lead + (c, F)).contiguous()
+        col = v.transpose(-1, -2)                          # [(B,) F, 1]
+        steps = torch.stack([col, torch.nextafter(col, col - 1),
+                             torch.nextafter(col, col + 1)], dim=-1)
+        th = steps.reshape(lead + (F, 3)).repeat_interleave(
+            -(-Q // 3), dim=-1)[..., :Q].contiguous()
     else:
         x = torch.randn(lead + (c, F), generator=g, device="cuda") * 10
         th = torch.randn(lead + (F, Q), generator=g, device="cuda") * 10
@@ -316,6 +366,14 @@ def stump_inputs(B, c, F, Q, kind, weights, seed):
             th = th.sort(dim=-1).values
         n = min(c, Q)
         th[..., :n] = x[..., :n, :].transpose(-1, -2)   # ties with points
+        if kind == "specials":
+            sp = torch.tensor(STUMP_SPECIALS, device="cuda")
+            pick = torch.randint(0, len(sp), x.shape, generator=g,
+                                 device="cuda")
+            mask = torch.rand(x.shape, generator=g, device="cuda") < 0.3
+            x = torch.where(mask, sp[pick], x)
+            th = th.clone()
+            th[..., :len(sp)] = sp[:min(Q, len(sp))]
         th[..., -1] = 3.4e38                            # the pad
     sign = torch.where(torch.rand(lead + (c,), generator=g, device="cuda")
                        < 0.5, -1.0, 1.0)
@@ -349,8 +407,8 @@ def stump_work(B, c, F, Q) -> tuple[int, int, int]:
     operations: sort each (task, feature) column, prefix-sum wy along
     it and binary-search each θ, c·lg c + c + Q·lg c per column.  The
     dense form, a compare and an add per (point, threshold) pair, is
-    what this kernel does, printed beside the bound.  Bytes: x, wy and
-    thetas read once, S written once, in float32."""
+    what the kernel did before its redesign, printed beside the bound.
+    Bytes: x, wy and thetas read once, S written once, in float32."""
     lg = max(1, math.ceil(math.log2(c)))
     ops = B * F * (c * lg + c + Q * lg)
     return ops, 2 * B * c * F * Q, 4 * (B * c * F + B * c + 2 * B * F * Q)
@@ -366,16 +424,50 @@ def stump_bound(B, c, F, Q) -> tuple[float, str, float]:
             max(dense / FP32_FLOPS * 1e3, bytes_ms))
 
 
-def phase_stump(ops) -> dict:
+def device_breakdown(fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from
+    torch.profiler over ``calls`` calls ({} if it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^\(anonymous namespace\)::", "", e.key)
+            out[name.split("(")[0]] = e.self_device_time_total / calls / 1e3
+    return out
+
+
+def stump_torch_calls(x, wy, th):
+    """The whole stump function in PyTorch calls, the kernel's yardstick
+    (``torch_calls_ms``): sort each (task, feature) column, gather wy,
+    float64 cumsum, searchsorted for each θ's lower bound.  Without the
+    kernel's NaN and −0.0 keys: the OPT inputs hold neither."""
+    B, c, F = x.shape
+    xs, order = torch.sort(x.transpose(1, 2).contiguous(), dim=-1)
+    w = torch.gather(wy[:, None, :].expand(B, F, c), -1, order).double()
+    pre = torch.nn.functional.pad(torch.cumsum(w, dim=-1), (1, 0))
+    idx = torch.searchsorted(xs, th)                            # first ≥ θ
+    return (pre[..., -1:] - torch.gather(pre, -1, idx)).float()
+
+
+def phase_stump(ops, kernel) -> dict:
     """The stump kernel against its plain version: bitwise on ±1 and
     dyadic weights, within rtol 1e-5 plus atol 1e-6·Σ|wy| on float
-    weights, at the reference's cases, a ragged shape and the OPT shapes
-    of the scenario slice and the dropout run; timed at both OPT shapes
-    (torch.matmul on a materialised step matrix at a smaller stated
-    shape).  The bound is that of the function, the sort-based
-    operation count or the bytes, whichever takes longer; the dense
-    design's is printed beside it.  Returns its JSON entry (without
-    launches)."""
+    weights, at the reference's cases, special values, constant columns,
+    ragged shapes and the OPT shapes of the scenario slice and the
+    dropout run, where two runs on float weights must also give the same
+    bits; timed at both OPT shapes beside the plain version and the
+    function in PyTorch calls (sort, gather, cumsum, searchsorted), and
+    at a smaller stated shape beside torch.matmul on a materialised step
+    matrix.  The bound is that of the function, the sort-based operation
+    count or the bytes, whichever takes longer; the dense design's is
+    printed beside it.  Returns its JSON entry (without launches)."""
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the plain version would drop bits")
     max_abs = 0.0
@@ -412,20 +504,43 @@ def phase_stump(ops) -> dict:
         plain_ms = start.elapsed_time(end)
         check(torch.equal(got, want),
               f"stump not bitwise at the {path} OPT shape {list(shape)}")
-        del want, got
-        kernel_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=5,
-                            warm=1)
+        check(torch.equal(stump_torch_calls(x, wy, th), got),
+              f"the stump in PyTorch calls disagrees with the kernel at "
+              f"{list(shape)}")
+        del want
+        wf = wy * (torch.rand(wy.shape, device="cuda") + 0.05)
+        check(torch.equal(ops.stump_scores(x, wf, th),
+                          ops.stump_scores(x, wf, th)),
+              f"two stump runs on float weights differ at {list(shape)}")
+        del got, wf
+        kernel_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=20,
+                            warm=3)
+        torch_ms = time_ms(lambda: stump_torch_calls(x, wy, th), reps=20,
+                           warm=3)
+        parts = device_breakdown(lambda: ops.stump_scores(x, wy, th))
+        log(f"stump {path} OPT shape: device ms per call by kernel "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
         bound_ms, bound_by, dense_ms = stump_bound(*shape)
         nops, flops, nbytes = stump_work(*shape)
-        log(f"stump {path} OPT shape {list(shape)}, ±1 weights: bitwise; "
-            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} (one run) "
+        plan, scratch = kernel.plan(B, c, F), kernel.scratch_bytes(B, c, F)
+        log(f"stump {path} OPT shape {list(shape)}, ±1 weights: bitwise, "
+            f"two float runs identical; plan: sort route, a sampled key "
+            f"every {1 << plan.sample_log2} ({plan.samples} per column), "
+            f"feature tile {1 << plan.feature_tile_log2}, scratch "
+            f"{scratch} bytes; kernel_ms {kernel_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} (one run) torch_calls_ms "
+            f"{torch_ms:.4f} (sort, gather, float64 cumsum, searchsorted) "
             f"bound_ms {bound_ms:.4f} by {bound_by} ({nbytes} bytes, "
             f"{nops} operations sorted) share_of_bound "
             f"{bound_ms / kernel_ms:.6f}; dense_bound_ms {dense_ms:.4f} "
-            f"({flops} FLOP at the float32 peak, this kernel's design)")
+            f"({flops} FLOP at the float32 peak, the design before)")
         paths[path] = {"shape": list(shape), "ms": kernel_ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "dense_bound_ms": dense_ms}
+                       "plain_ms": plain_ms, "torch_calls_ms": torch_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "dense_bound_ms": dense_ms, "route": "sort",
+                       "device_ms_by_kernel": parts,
+                       "sample_stride": 1 << plan.sample_log2,
+                       "scratch_bytes": scratch}
         del x, wy, th
     b1, c1, f1, q1 = STUMP_SMALL
     x, wy, th = opt_inputs(b1, c1, f1, seed=10)
@@ -459,6 +574,7 @@ def phase_stump(ops) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "dense_bound_ms": main["dense_bound_ms"],
+            "torch_calls_ms": main["torch_calls_ms"],
             "library_ms": library_ms, "library_shape": list(STUMP_SMALL),
             "at_library_shape": {"ms": small_ms, "plain_ms": small_plain_ms,
                                  "bound_ms": small_bound,
@@ -656,6 +772,12 @@ def phase_card_vs_cpu(batched, prng, tasks, weak) -> None:
             k=4, coreset_size=100, domain_size=4096, opt_budget=16,
             deterministic_coreset=False), tasks.make_batch(
                 cls, 2, 256, 4, 2, seed0=3)))
+    # 240 rounds (rounds_factor 30 at m = 256, noise 0): every hit count
+    # reaches 240, past float32's range for an unshifted weight sum
+    cls = weak.make_class("thresholds", n=4096)
+    runs.append(("thresholds/240 rounds", cls, BoostConfig(
+        k=4, coreset_size=100, domain_size=4096, rounds_factor=30,
+        opt_budget=4), tasks.make_batch(cls, 2, 256, 4, 0, seed0=11)))
     for name, cls, cfg, (x, y, _) in runs:
         B = x.shape[0]
         res = {dev: batched.run_accurately_classify_batched(
@@ -665,6 +787,9 @@ def phase_card_vs_cpu(batched, prng, tasks, weak) -> None:
             card, cpu = (protocol_outputs(res[d], b) for d in ("cuda", "cpu"))
             check(card == cpu, f"{name} task {b}: card and CPU protocol "
                   f"outputs differ in {[k for k in card if card[k] != cpu[k]]}")
+        if name == "thresholds/240 rounds":
+            check(res["cuda"].ok.all() and (res["cuda"].rounds == 240).all(),
+                  f"{name}: ok {res['cuda'].ok}, rounds {res['cuda'].rounds}")
         log(f"card vs cpu, {name}: protocol outputs equal on {B} tasks "
             f"({res['cuda'].steps} steps, ok {int(res['cuda'].ok.sum())})")
 
@@ -985,6 +1110,7 @@ def main() -> int:
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.histogram import ref as hist_ref
     from repro_torch.kernels.mw_update import ops as mw_ops
+    from repro_torch.kernels.stump import kernel as stump_kernel
     from repro_torch.kernels.stump import ops as stump_ops
     from repro_torch.launch import serve
 
@@ -1014,7 +1140,8 @@ def main() -> int:
     entries = {"mw_update": phase("mw_update", phase_kernel, mw_ops),
                "histogram": phase("histogram", phase_histogram, hist_ops,
                                   hist_ref),
-               "stump": phase("stump", phase_stump, stump_ops),
+               "stump": phase("stump", phase_stump, stump_ops,
+                              stump_kernel),
                "flash_attention": phase("flash attention", phase_flash,
                                         flash_ops, flash_kernel, _build)}
     # 4. the integer-track path at full size
@@ -1024,6 +1151,13 @@ def main() -> int:
           "the integer track launched the histogram kernel")
     phase("thresholds profile", phase_profile, batched, serve, prng, tasks,
           SLICE_ARGS, "thresholds", 3)
+    # past the old 126-round cap: m = 2^22 per task, 132 rounds
+    large_out, large_res, large_launches = phase(
+        "large-m thresholds run", phase_slice, serve, ledger, LARGE_ARGS,
+        "large-m run")
+    check(large_out["ok"] == 4 and int(large_res.rounds.max()) > 126,
+          f"large-m run: ok {large_out['ok']} of 4, rounds "
+          f"{large_res.rounds.tolist()}")
     # 5. the tree path at full size: this slice's main path
     _, res, launches = phase("tree slice", phase_slice, serve, ledger,
                              TREE_ARGS, "tree slice")
@@ -1055,7 +1189,8 @@ def main() -> int:
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``
-    runs = {"thresholds": int_launches, "tree": launches,
+    runs = {"thresholds": int_launches, "large_m": large_launches,
+            "tree": launches,
             "scenario": scen_launches, "dropout": drop_launches,
             "lm": lm_launches}
     for name, entry in entries.items():

@@ -4,8 +4,9 @@ the port.
 A JAX ``repro.core.batched.StepState`` arrives as a dict of numpy
 arrays (``jax.device_get(state)._asdict()``); the port's
 :class:`repro_torch.core.batched.StepState` holds the same fields as
-tensors — the uint32 key words in int64 — plus ``wsum``, recomputed
-from ``hits`` and ``alive`` in the mw_update kernel's summation order.
+tensors — the uint32 key words in int64 — plus ``wsum`` and its
+``wsum_shift``, recomputed from ``hits`` and ``alive`` in the mw_update
+kernel's summation order, shifted by each row's least alive hit count.
 A JAX run stopped after n rounds can so be finished by the port, and
 the other way round.  The data ``x``/``y`` stays plain numpy on both
 sides.
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import batched
+from repro_torch.core.approximation import least_alive_hits
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mw_update import ops as mw_ops
 
@@ -35,7 +37,7 @@ def from_jax(leaves: dict, device=None) -> batched.StepState:
                              f"expects {want}: refusing a silent cast")
     fields = {}
     for f in batched.StepState._fields:
-        if f == "wsum":
+        if f in batched.PORT_FIELDS:
             continue
         v = np.array(leaves[f])
         if f in batched.KEY_FIELDS:
@@ -43,10 +45,13 @@ def from_jax(leaves: dict, device=None) -> batched.StepState:
         fields[f] = torch.as_tensor(v, device=dev)
     hits, alive = fields["hits"], fields["alive"]
     B, k, mloc = hits.shape
+    shift = least_alive_hits(hits, alive)
     _, wsum = mw_ops.mw_update(hits.reshape(B * k, mloc),
                                torch.zeros_like(alive).reshape(B * k, mloc),
-                               alive.reshape(B * k, mloc), interpret=True)
-    return batched.StepState(**fields, wsum=wsum.reshape(B, k))
+                               alive.reshape(B * k, mloc),
+                               shift.reshape(B * k), interpret=True)
+    return batched.StepState(**fields, wsum=wsum.reshape(B, k),
+                             wsum_shift=shift)
 
 
 def to_jax(state: batched.StepState) -> dict:
@@ -54,7 +59,7 @@ def to_jax(state: batched.StepState) -> dict:
     uint32."""
     out = {}
     for f, v in state._asdict().items():
-        if f == "wsum":
+        if f in batched.PORT_FIELDS:
             continue
         v = v.cpu().numpy()
         out[f] = v.astype(np.uint32) if f in batched.KEY_FIELDS else v

@@ -27,9 +27,11 @@ Differences from the reference's state, all deliberate:
 * ``key_data``/``akey_data`` hold the uint32 key words in int64
   tensors (torch has no full uint32 arithmetic); ``repro_torch.convert``
   restores uint32 at the boundary;
-* ``wsum`` [B, k] float32 — each player's Σ_alive 2^−hits, the weight
-  sum of the next round's step 2(b), as the mw_update kernel returns
-  it (the reference recomputes it from ``hits`` every round).
+* ``wsum`` [B, k] float32 and ``wsum_shift`` [B, k] int32 — each
+  player's Σ_alive 2^(wsum_shift − hits), the weight sum of the next
+  round's step 2(b), as the mw_update kernel returns it (the reference
+  recomputes it from ``hits`` every round); the shift is the least
+  alive hit count the kernel's input had.
 """
 
 from __future__ import annotations
@@ -46,10 +48,6 @@ from repro_torch.core import ledger as L
 from repro_torch.core import weights as W
 from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
 from repro_torch.device import resolve_device
-
-# the unshifted weight sum stays a normal float32 while hits ≤ 126
-MAX_ROUNDS = 126
-
 
 class StepState(NamedTuple):
     """Whole-protocol state of B tasks; every field has a leading
@@ -77,7 +75,8 @@ class StepState(NamedTuple):
     t: torch.Tensor                 # int32 hypotheses this attempt
     bound: torch.Tensor             # int32 this attempt's round bound
     hits: torch.Tensor              # [k, mloc] MW state
-    wsum: torch.Tensor              # [k] Σ_alive 2^−hits (port only)
+    wsum: torch.Tensor              # [k] Σ_alive 2^(wsum_shift − hits)
+    wsum_shift: torch.Tensor        # [k] int32 its exponent shift
     cur_h: torch.Tensor             # [t_buf, P] growing ensemble
     core_x: torch.Tensor            # [k, c(, F)] last round's coreset
     core_y: torch.Tensor            # [k, c]
@@ -85,7 +84,7 @@ class StepState(NamedTuple):
 
 
 # the reference's layout (key words uint32 at the boundary; int64 in
-# the port's tensors), plus the port's wsum
+# the port's tensors), plus the port's own fields (PORT_FIELDS)
 STATE_DTYPES = {
     "attempt": "int32", "done": "bool", "alive": "bool",
     "disputed": "bool", "key_data": "uint32", "h_params": "float32",
@@ -94,10 +93,11 @@ STATE_DTYPES = {
     "hist_players": "int32", "hist_players_h": "int32",
     "hist_players_last": "int32", "in_attempt": "bool",
     "akey_data": "uint32", "t": "int32", "bound": "int32",
-    "hits": "int32", "wsum": "float32", "cur_h": "float32",
-    "step": "int32",
+    "hits": "int32", "wsum": "float32", "wsum_shift": "int32",
+    "cur_h": "float32", "step": "int32",
 }
 KEY_FIELDS = ("key_data", "akey_data")
+PORT_FIELDS = ("wsum", "wsum_shift")
 
 
 def num_rounds_dynamic(cfg: BoostConfig, m_alive: torch.Tensor) -> torch.Tensor:
@@ -160,10 +160,7 @@ def init_state(x, y, keys, cfg: BoostConfig, alive=None,
     (or one key to split); ``alive`` optional [B, k, mloc] bool (False
     = padding); ``t_buf`` ensemble-buffer rounds (default
     ``cfg.num_rounds(k·mloc)``); ``cls`` sizes the ensemble buffers
-    (:func:`weak.param_dim`).  Raises for shards whose round bound
-    exceeds 126 (m > 2^21 per task): the carried weight sum is exact in
-    range only up to there, and larger m needs the streaming slice
-    (ROADMAP queue 1, item 10).
+    (:func:`weak.param_dim`).
     """
     dev = resolve_device(device)
     x = as_tensor(x, dev)
@@ -175,11 +172,6 @@ def init_state(x, y, keys, cfg: BoostConfig, alive=None,
     kd = task_keys(keys, B, dev)
     if t_buf is None:
         t_buf = cfg.num_rounds(k * mloc)
-    if max(t_buf, cfg.num_rounds(k * mloc)) > MAX_ROUNDS:
-        raise ValueError(
-            f"m = {k * mloc} per task needs more than {MAX_ROUNDS} rounds; "
-            "hits past 126 leave float32's normal range — the streaming "
-            "slice (ROADMAP queue 1, item 10) brings larger m")
     alive = (torch.ones((B, k, mloc), dtype=torch.bool, device=dev)
              if alive is None else as_tensor(alive, dev))
     p_dim = weak.param_dim(cls)
@@ -205,7 +197,8 @@ def init_state(x, y, keys, cfg: BoostConfig, alive=None,
         hist_players_last=i32(B, a_max),
         in_attempt=b8(B), akey_data=torch.zeros_like(kd), t=i32(B),
         bound=i32(B), hits=W.init_hits((B, k, mloc), device=dev),
-        wsum=f32(B, k), cur_h=f32(B, t_buf, p_dim),
+        wsum=f32(B, k), wsum_shift=i32(B, k),
+        cur_h=f32(B, t_buf, p_dim),
         core_x=torch.zeros((B, k, c) + tuple(x.shape[3:]), dtype=x.dtype,
                            device=dev),
         core_y=torch.zeros((B, k, c), dtype=torch.int8, device=dev),
@@ -243,6 +236,7 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
     bound = torch.where(start, num_rounds_dynamic(cfg, m_alive), s.bound)
     hits = torch.where(start[:, None, None], 0, s.hits)
     wsum = torch.where(start[:, None], s.alive.sum(dim=-1).float(), s.wsum)
+    wsum_shift = torch.where(start[:, None], 0, s.wsum_shift)
     cur_h = torch.where(start[:, None, None], 0.0, s.cur_h)
     t = torch.where(start, 0, s.t)
     hist_alive = _set_at(s.hist_alive, a_idx, m_alive, start)
@@ -251,8 +245,8 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
                     else torch.gather(s.alive, -1, x_orders))
     carry = boost_attempt._Carry(
         t=t, stuck=torch.zeros_like(start), hits=hits, wsum=wsum,
-        h_params=cur_h, core_x=s.core_x, core_y=s.core_y,
-        min_loss=s.min_loss, key=akey_data)
+        wsum_shift=wsum_shift, h_params=cur_h, core_x=s.core_x,
+        core_y=s.core_y, min_loss=s.min_loss, key=akey_data)
     out = boost_attempt._round_body(
         cfg, cls, x, y, s.alive, x_orders, y_sorted, alive_sorted, carry,
         player_alive=pa, active=active)
@@ -292,8 +286,8 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
         in_attempt=~ended,
         akey_data=out.key,
         t=out.t, bound=bound, hits=out.hits, wsum=out.wsum,
-        cur_h=out.h_params, core_x=out.core_x, core_y=out.core_y,
-        step=s.step + 1)
+        wsum_shift=out.wsum_shift, cur_h=out.h_params, core_x=out.core_x,
+        core_y=out.core_y, step=s.step + 1)
     # finished lanes freeze
     return StepState(*(
         torch.where(active.reshape((B,) + (1,) * (new.ndim - 1)), new, old)

@@ -31,7 +31,8 @@ class _Carry(NamedTuple):
     t: torch.Tensor          # [B] int32 hypotheses produced so far
     stuck: torch.Tensor      # [B] bool
     hits: torch.Tensor       # [B, k, mloc] int32 MW state
-    wsum: torch.Tensor       # [B, k] float32 Σ_alive 2^−hits (step 2(b))
+    wsum: torch.Tensor       # [B, k] float32 Σ_alive 2^(wsum_shift − hits)
+    wsum_shift: torch.Tensor  # [B, k] int32 the sum's exponent shift
     h_params: torch.Tensor   # [B, T, P] ensemble
     core_x: torch.Tensor     # [B, k, c] last round's coreset points
     core_y: torch.Tensor     # [B, k, c]
@@ -78,7 +79,10 @@ def _round_body(cfg, cls, x, y, alive, x_orders, y_sorted, alive_sorted,
     round, an absent player, a finished lane — so the new hits equal
     the reference's bit for bit, and the weight sum it returns is the
     next round's step 2(b) (alive changes only at quarantine, which
-    ends the attempt, so the carried sum is never stale).
+    ends the attempt, so the carried sum is never stale).  The sum is
+    shifted by this round's least alive hit count, as the reference
+    shifts by the row maximum of −hits, so its terms stay normal floats
+    however many rounds a run takes.
     """
     c = cfg.coreset_size
     B, k, mloc = x.shape[:3]
@@ -86,7 +90,7 @@ def _round_body(cfg, cls, x, y, alive, x_orders, y_sorted, alive_sorted,
     key, keys = halves[:, 0], prng.split(halves[:, 1], k)        # [B, k, 2]
     # --- players: step 2(a) coreset + step 2(b) weight sums -------------
     hmin = approximation.least_alive_hits(carry.hits, alive)      # [B, k]
-    lws = W.log_wsums_from_sums(carry.wsum, hmin)
+    lws = W.log_wsums_from_sums(carry.wsum, hmin, carry.wsum_shift)
     idx = approximation.select_coreset(
         x, y, carry.hits, alive, c, is_quantile_track(cfg, x),
         order=x_orders, y_sorted=y_sorted, alive_sorted=alive_sorted,
@@ -103,7 +107,8 @@ def _round_body(cfg, cls, x, y, alive, x_orders, y_sorted, alive_sorted,
     correct = (cls.predict(h, x) == y) & moves
     hits, wsum = mw_ops.mw_update(carry.hits.reshape(B * k, mloc),
                                   correct.reshape(B * k, mloc),
-                                  alive.reshape(B * k, mloc))
+                                  alive.reshape(B * k, mloc),
+                                  hmin.reshape(B * k))
     rows = torch.arange(B, device=x.device)
     t_idx = carry.t.clamp(max=carry.h_params.shape[1] - 1).long()
     h_params = carry.h_params.clone()
@@ -114,6 +119,7 @@ def _round_body(cfg, cls, x, y, alive, x_orders, y_sorted, alive_sorted,
         stuck=stuck_now,
         hits=hits.reshape(B, k, mloc),
         wsum=wsum.reshape(B, k),
+        wsum_shift=hmin,
         h_params=h_params,
         core_x=cx, core_y=cy,
         min_loss=loss,

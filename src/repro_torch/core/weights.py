@@ -29,7 +29,7 @@ def update_hits(hits: torch.Tensor, correct: torch.Tensor,
 def log_weight_sum(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """log2 Σ_{alive} 2^{−hits} over the last axis, max-shifted as the
     reference computes it; −inf for an all-dead row.  The engine reads
-    the unshifted sum from the mw_update kernel instead
+    the shifted sum from the mw_update kernel instead
     (:func:`log_wsums_from_sums`)."""
     logw = torch.where(alive, -hits.float(), -math.inf)
     mx = logw.amax(dim=-1, keepdim=True)
@@ -40,15 +40,18 @@ def log_weight_sum(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return torch.where(finite, out, -math.inf)[..., 0]
 
 
-def log_wsums_from_sums(wsum: torch.Tensor, hmin: torch.Tensor) -> torch.Tensor:
-    """Step 2(b)'s log2 W^{(i)} from the carried weight sum Σ 2^−hits
-    and each row's least alive hit count, in the reference's max-shifted
-    form ``−hmin + log2(wsum·2^hmin)`` (the scaling is exact).  A dead
-    player (wsum 0) gives −inf."""
-    # 2^hmin from its exponent bits: exact on every device
-    scale = ((hmin.clamp(0, 126) + 127) << 23).view(torch.float32)
-    scaled = wsum * scale
-    out = -hmin.float() + fp32.log2(torch.clamp(scaled, min=1e-30))
+def log_wsums_from_sums(wsum: torch.Tensor, hmin: torch.Tensor,
+                        shift: torch.Tensor | int = 0) -> torch.Tensor:
+    """Step 2(b)'s log2 W^{(i)} from the carried weight sum
+    ``wsum = Σ 2^(shift − hits)`` and each row's least alive hit count,
+    in the reference's max-shifted form ``−hmin + log2(wsum·2^(hmin −
+    shift))`` (the scaling is exact).  Within an attempt hmin − shift
+    is 0 or 1: the engine passes the least hit count of the kernel's
+    input as the shift.  A dead player (wsum 0) gives −inf."""
+    d = torch.where(wsum > 0, hmin - shift, 0)
+    # 2^d from its exponent bits: exact on every device
+    scale = ((d + 127) << 23).view(torch.float32)
+    out = -hmin.float() + fp32.log2(torch.clamp(wsum * scale, min=1e-30))
     return torch.where(wsum > 0, out, -math.inf)
 
 

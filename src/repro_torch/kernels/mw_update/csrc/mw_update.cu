@@ -2,7 +2,13 @@
 // step 2(f) hit update plus the step 2(b) weight sum of the next round.
 //
 //   new_hits[r, i] = hits[r, i] + 1[correct[r, i] && alive[r, i]]
-//   wsum[r]        = sum over alive i of 2^-new_hits[r, i]
+//   wsum[r]        = sum over alive i of 2^(shift[r] - new_hits[r, i])
+//
+// The caller passes each row's least alive hit count as shift[r], as
+// the reference shifts by the row's largest log-weight before it sums:
+// the terms stay in float32's normal range however many rounds a run
+// takes, and scaling by a power of two is exact, so shift 0 gives the
+// unshifted sum's bits wherever that sum is in range.
 //
 // Replaces the TPU kernel src/repro/kernels/mw_update/kernel.py:36
 // (mw_update_pallas, body _mw_kernel at :25), which walks one row in
@@ -10,9 +16,9 @@
 //
 // Bound: memory.  Each element moves 10 bytes (read hits 4 + correct 1 +
 // alive 1, write new_hits 4) for a handful of integer and float
-// operations.  At the engine's main shape (R = 64 player rows of
-// mloc = 2^18) that is 168 MB per round, about 50 us at the H100's
-// 3.35 TB/s.
+// operations; the shift adds 4 bytes a row.  At the engine's main shape
+// (R = 64 player rows of mloc = 2^18) that is 168 MB per round, about
+// 50 us at the H100's 3.35 TB/s.
 //
 // Design, simple first: pass 1 runs one block per (2048-element tile,
 // row); each of 256 threads reads 8 elements 256 apart (coalesced),
@@ -44,10 +50,12 @@ __device__ __forceinline__ float warp_fold(float v) {
 
 __global__ void __launch_bounds__(kThreads)
 mw_tiles(const int32_t* __restrict__ hits, const uint8_t* __restrict__ correct,
-         const uint8_t* __restrict__ alive, int32_t* __restrict__ new_hits,
-         float* __restrict__ partials, int m) {
+         const uint8_t* __restrict__ alive, const int32_t* __restrict__ shift,
+         int32_t* __restrict__ new_hits, float* __restrict__ partials,
+         int m) {
   const int64_t row_off = static_cast<int64_t>(blockIdx.y) * m;
   const int base = blockIdx.x * kBlock;
+  const int32_t row_shift = shift[blockIdx.y];
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
@@ -58,7 +66,7 @@ mw_tiles(const int32_t* __restrict__ hits, const uint8_t* __restrict__ correct,
       const uint8_t a = alive[e];
       const int32_t h = hits[e] + ((correct[e] & a) ? 1 : 0);
       new_hits[e] = h;
-      w = a ? ldexpf(1.0f, -h) : 0.0f;  // 2^-h exactly
+      w = a ? ldexpf(1.0f, row_shift - h) : 0.0f;  // 2^(shift-h) exactly
     }
     acc = acc + w;
   }
@@ -85,18 +93,19 @@ mw_rows(const float* __restrict__ partials, float* __restrict__ wsum, int nb) {
 }  // namespace
 
 // hits, new_hits: int32 [rows, m]; correct, alive: uint8 (torch.bool)
-// [rows, m]; partials: float32 [rows, ceil(m / 2048)]; wsum: float32
-// [rows].  Enqueues both passes on `stream` and returns cudaGetLastError().
+// [rows, m]; shift: int32 [rows], at most each row's least alive hit
+// count; partials: float32 [rows, ceil(m / 2048)]; wsum: float32 [rows].
+// Enqueues both passes on `stream` and returns cudaGetLastError().
 extern "C" int mw_update_launch(const void* hits, const void* correct,
-                                const void* alive, void* new_hits,
-                                void* partials, void* wsum, int rows, int m,
-                                void* stream) {
+                                const void* alive, const void* shift,
+                                void* new_hits, void* partials, void* wsum,
+                                int rows, int m, void* stream) {
   const int nb = (m + kBlock - 1) / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   mw_tiles<<<dim3(nb, rows), kThreads, 0, s>>>(
       static_cast<const int32_t*>(hits), static_cast<const uint8_t*>(correct),
-      static_cast<const uint8_t*>(alive), static_cast<int32_t*>(new_hits),
-      static_cast<float*>(partials), m);
+      static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(shift),
+      static_cast<int32_t*>(new_hits), static_cast<float*>(partials), m);
   mw_rows<<<rows, kWarp, 0, s>>>(static_cast<const float*>(partials),
                                  static_cast<float*>(wsum), nb);
   return static_cast<int>(cudaGetLastError());

@@ -19,8 +19,9 @@ WARP = 32
 
 
 def pow2_neg(h: torch.Tensor) -> torch.Tensor:
-    """2^−h as float32, exact (``ldexpf(1, −h)`` in the kernel), for
-    int32 h ≥ 0: normal down to 2^−126, subnormal to 2^−149, then 0."""
+    """2^−h as float32, exact (``ldexpf(1, shift − hits)`` in the
+    kernel, h = hits − shift), for int32 h ≥ 0: normal down to 2^−126,
+    subnormal to 2^−149, then 0."""
     h = h.clamp(0, 150)
     normal = (127 - h) << 23
     sub = torch.where(h <= 149, 1 << (149 - h).clamp(0, 22), 0)
@@ -62,10 +63,11 @@ def row_sums(partials: torch.Tensor) -> torch.Tensor:
 
 
 def mw_update_ref(hits: torch.Tensor, correct: torch.Tensor,
-                  alive: torch.Tensor):
-    """hits int32 [R, m]; correct, alive bool [R, m] →
-    (new_hits = hits + 1[correct ∧ alive] int32 [R, m],
-     wsum = Σ_alive 2^−new_hits float32 [R])."""
+                  alive: torch.Tensor, shift: torch.Tensor | None = None):
+    """hits int32 [R, m]; correct, alive bool [R, m]; shift int32 [R]
+    (0 if None) → (new_hits = hits + 1[correct ∧ alive] int32 [R, m],
+    wsum = Σ_alive 2^(shift − new_hits) float32 [R])."""
     new_hits = hits + (correct & alive).to(torch.int32)
-    w = torch.where(alive, pow2_neg(new_hits), 0.0)
+    exp = new_hits if shift is None else new_hits - shift[:, None]
+    w = torch.where(alive, pow2_neg(exp), 0.0)
     return new_hits, row_sums(block_partials(w))

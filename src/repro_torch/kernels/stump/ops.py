@@ -9,7 +9,9 @@ can show that its path went through the kernel.
 Both entry points take an optional leading task axis: ``x [c, F]`` or
 ``x [B, c, F]`` with per-task weights and thresholds — the batched
 form is one launch for all B tasks.  No padding: the kernel masks the
-ragged edges itself.
+ragged edges itself.  On the card a launch is the kernel's chain
+(keys, radix sort, float64 prefix, search) on one stream, on scratch
+of :func:`kernel.scratch_bytes`.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ def stump_scores(x: torch.Tensor, wy: torch.Tensor, thetas: torch.Tensor,
                                                     thetas[None])
     B, c, F = xb.shape
     Q = tb.shape[-1]
-    if B > kernel.MAX_GRID_YZ or F > kernel.MAX_GRID_YZ:
+    if B > kernel.MAX_GRID_YZ or F > kernel.MAX_GRID_YZ or c >= 1 << 31 \
+            or B * F >= 1 << 31:
         raise ValueError(f"the stump kernel's grid takes B and F up to "
-                         f"{kernel.MAX_GRID_YZ}, got B={B}, F={F}")
+                         f"{kernel.MAX_GRID_YZ}, B·F and c below 2^31, "
+                         f"got B={B}, c={c}, F={F}")
     s = torch.empty((B, F, Q), dtype=torch.float32, device=x.device)
     if B and F and Q:
         kernel.launch(xb.contiguous(), wyb.contiguous(), tb.contiguous(), s,

@@ -34,10 +34,15 @@ FLASH_SHAPES = [(1, 64, 4, 2, 32), (2, 128, 8, 8, 64), (1, 200, 4, 1, 16),
                 (1, 384, 16, 2, 128)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # B, c, F, Q: the reference's stump cases (tests/test_kernels.py), a
-# ragged c, F and Q, and the scenario slice's OPT at m = 2^14
+# ragged c, F and Q, the scenario slice's OPT at m = 2^14, c across the
+# sort's 4096-key tiles with F past the key pass's 32-wide tile, c past
+# 16·8192 (a sampled key every 32nd) and Q past 65535
 STUMP_SHAPES = [(1, 32, 1, 8), (1, 257, 9, 130), (3, 129, 9, 127),
                 (4, 33, 3, 17), (2, 3001, 5, 1001), (1, 1, 1, 1),
-                (4, 1 << 14, 8, (1 << 14) + 1)]
+                (4, 1 << 14, 8, (1 << 14) + 1), (2, 4097, 33, 100),
+                (1, 140001, 2, 300), (1, 5000, 2, 70000)]
+STUMP_SPECIALS = (0.0, -0.0, math.inf, -math.inf, math.nan, 3.4e38,
+                  -3.4e38, 1.0, -1.0)
 
 
 @pytest.fixture
@@ -82,6 +87,30 @@ def test_mw_update_kernel_matches_plain_version(card, R, m):
     assert mw_ops.launches == before + 1
     rh, rw = mw_ops.mw_update(hits, correct, alive, interpret=True)
     assert torch.equal(kh, rh) and torch.equal(kw, rw)
+
+
+@pytest.mark.cuda
+def test_shifted_mw_update_past_126_hits(card):
+    """The tree path's [64, 2^14] with hits in 120–420 and each row's
+    least alive hit count as the shift (a dead row keeps int32 max),
+    bitwise against the plain version."""
+    R, m = 64, 1 << 14
+    g = torch.Generator(device=card).manual_seed(126)
+    base = torch.randint(120, 300, (R, 1), generator=g, device=card,
+                         dtype=torch.int32)
+    hits = base + torch.randint(0, 121, (R, m), generator=g, device=card,
+                                dtype=torch.int32)
+    correct = torch.rand((R, m), generator=g, device=card) < 0.7
+    alive = torch.rand((R, m), generator=g, device=card) < 0.95
+    alive[0] = False
+    shift = torch.where(alive, hits, torch.iinfo(torch.int32).max).amin(-1)
+    before = mw_ops.launches
+    kh, kw = mw_ops.mw_update(hits, correct, alive, shift)
+    torch.cuda.synchronize()
+    assert mw_ops.launches == before + 1
+    rh, rw = mw_ops.mw_update(hits, correct, alive, shift, interpret=True)
+    assert torch.equal(kh, rh) and torch.equal(kw, rw)
+    assert bool((kw[1:] >= 0.5).all()) and float(kw[0]) == 0.0
 
 
 @pytest.mark.cuda
@@ -156,3 +185,84 @@ def test_stump_kernel_matches_plain_version(card, shape, weights):
         assert torch.equal(got, want)
     one = stump_ops.stump_scores(x[0], wy[0], th[0])
     assert torch.equal(one, got[0])
+
+
+def _stump_weights(g, B, c, kind, card):
+    sign = torch.where(torch.rand((B, c), generator=g, device=card) < 0.5,
+                       -1.0, 1.0)
+    if kind == "pm1":
+        return sign
+    if kind == "dyadic":
+        return sign * torch.ldexp(torch.ones_like(sign), -torch.randint(
+            0, 7, (B, c), generator=g, device=card))
+    return sign * torch.rand((B, c), generator=g, device=card)
+
+
+def _held_to_plain_version(x, wy, th, weights):
+    before = stump_ops.launches
+    got = stump_ops.stump_scores(x, wy, th)
+    torch.cuda.synchronize()
+    assert stump_ops.launches == before + 1
+    want = stump_ops.stump_scores(x, wy, th, interpret=True)
+    if weights == "float":
+        atol = 1e-6 * wy.abs().sum(-1).max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    else:
+        assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["pm1", "dyadic", "float"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 300, 5, 40),
+                                   (3, 5000, 8, 257)], ids=str)
+def test_stump_kernel_special_values(card, shape, weights):
+    """±0.0, ±inf, NaN and ±3.4e38 among the points and the thresholds:
+    −0.0 ≥ +0.0, NaN counts for no threshold and a NaN threshold counts
+    nothing, −inf counts every point but NaN, the pad counts +inf."""
+    B, c, F, Q = shape
+    g = torch.Generator(device=card).manual_seed(c + Q)
+    sp = torch.tensor(STUMP_SPECIALS, device=card)
+    x = torch.randn((B, c, F), generator=g, device=card)
+    pick = torch.randint(0, len(sp), (B, c, F), generator=g, device=card)
+    x = torch.where(torch.rand((B, c, F), generator=g, device=card) < 0.4,
+                    sp[pick], x)
+    th = sp[torch.randint(0, len(sp), (B, F, Q), generator=g, device=card)]
+    th[..., -1] = 3.4e38
+    _held_to_plain_version(x, _stump_weights(g, B, c, weights, card), th,
+                           weights)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4096, 4097, 20000])
+def test_stump_kernel_constant_columns(card, c):
+    """Every point of a column equal (every radix pass skipped): the
+    thresholds at the value count all points, one float step above it
+    none."""
+    B, F, Q = 2, 3, 9
+    g = torch.Generator(device=card).manual_seed(c)
+    v = torch.randint(-3, 4, (B, 1, F), generator=g, device=card).float()
+    x = v.expand(B, c, F).contiguous()
+    col = v.transpose(1, 2)
+    th = torch.cat([col, torch.nextafter(col, col - 1),
+                    torch.nextafter(col, col + 1)], dim=-1).repeat(1, 1, 3)
+    wy = _stump_weights(g, B, c, "pm1", card)
+    got = _held_to_plain_version(x, wy, th, "pm1")
+    total = wy.sum(-1)[:, None]
+    assert torch.equal(got[..., 0], total.expand(B, F))
+    assert bool((got[..., 2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 12288, 8, 12289),
+                                   (2, 140001, 2, 300)], ids=str)
+def test_stump_kernel_gives_the_same_bits_twice(card, shape):
+    B, c, F, Q = shape
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((B, c, F), generator=g, device=card) * 100
+    th = torch.randn((B, F, Q), generator=g, device=card) * 100
+    wy = _stump_weights(g, B, c, "float", card)
+    first = stump_ops.stump_scores(x, wy, th)
+    second = stump_ops.stump_scores(x, wy, th)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

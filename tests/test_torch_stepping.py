@@ -20,7 +20,8 @@ from repro_torch import convert
 from repro_torch.core import batched, prng, weak
 from repro_torch.core.types import BoostConfig
 
-from test_torch_batched import CFG, N, assert_results_equal
+from test_torch_batched import (CFG, N, assert_results_equal,
+                                assert_task_parity)
 
 B, M, NOISE = 2, 512, 3
 
@@ -102,9 +103,35 @@ def test_port_state_finished_by_jax():
     assert_results_equal(ref, got)
 
 
-def test_init_state_refuses_more_than_126_rounds():
+def test_port_equals_jax_past_126_rounds():
+    """240 rounds (rounds_factor 30 at m = 256): with noise 0 every hit
+    count reaches 240, past float32's normal range for an unshifted
+    Σ 2^−hits.  The shifted sum keeps every protocol output and ledger
+    field equal to the JAX engine's."""
+    x, y, _ = j_tasks.make_batch(j_weak.Thresholds(n=N), B, 256, 4, 0,
+                                 seed0=11)
+    cfg = dict(k=4, coreset_size=100, domain_size=N, rounds_factor=30,
+               opt_budget=4)
+    keys = jax.random.split(jax.random.key(5), B)
+    ref = j_batched.run_accurately_classify_batched(
+        x, y, keys, JConfig(**cfg), j_weak.Thresholds(n=N))
+    got = batched.run_accurately_classify_batched(
+        x, y, prng.key(5), BoostConfig(**cfg), weak.Thresholds(n=N),
+        device="cpu")
+    assert BoostConfig(**cfg).num_rounds(256) == 240
+    assert got.ok.all() and (got.rounds == 240).all()
+    assert_results_equal(ref, got)
+    for b in range(B):
+        assert_task_parity(ref.per_task(b), got.per_task(b))
+
+
+def test_init_state_takes_more_than_126_rounds():
+    """k = 4, mloc = 2^19 + 1: m = 2^21 + 4 per task needs 127 rounds."""
     cfg = BoostConfig(k=4, coreset_size=8, domain_size=N)
     x = np.zeros((1, 4, 2 ** 19 + 1), np.int32)
-    with pytest.raises(ValueError, match="item 10"):
-        batched.init_state(x, np.ones(x.shape, np.int8), prng.key(0), cfg,
+    assert cfg.num_rounds(4 * x.shape[2]) == 127
+    s = batched.init_state(x, np.ones(x.shape, np.int8), prng.key(0), cfg,
                            device="cpu")
+    assert s.h_params.shape[1] == 127
+    assert s.wsum_shift.dtype == torch.int32
+    assert s.wsum_shift.shape == s.wsum.shape == (1, 4)

@@ -24,7 +24,7 @@ from repro.core import weak as j_weak
 from repro.kernels.stump import ops as j_ops
 from repro.kernels.stump import ref as j_ref
 from repro_torch.core import scenarios, tasks, weak
-from repro_torch.kernels.stump import ops, ref
+from repro_torch.kernels.stump import kernel, ops, ref
 
 # the inputs are small: torch's intra-op threads only contend with the
 # other test workers
@@ -110,6 +110,76 @@ def test_integer_weights_give_exact_counts(case):
     w = np.floor(w * 4).astype(np.float32) + 1.0          # 1 … 5
     got = ops.stump_errors(*_t(x, w, y, th)).numpy()
     assert np.array_equal(got, _direct(x, w, y, th))
+
+
+SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38, -3.4e38,
+                     1.0, -1.0], np.float32)
+
+
+def _special_case(B, c, F, Q, kind, seed):
+    """``specials``: ±0.0, ±inf, NaN and ±3.4e38 among the points and
+    as the thresholds; ``constant``: every column one repeated value,
+    thresholds at it and one float step either side (the
+    all-duplicates columns the sort kernel skips every pass on).  The
+    value is never 0: a step from 0 is subnormal, which XLA:CPU reads
+    as 0 and the port does not."""
+    rng = np.random.default_rng(seed)
+    if kind == "specials":
+        x = (rng.standard_normal((B, c, F)) * 4).astype(np.float32)
+        mask = rng.random((B, c, F)) < 0.4
+        x[mask] = rng.choice(SPECIALS, int(mask.sum()))
+        th = rng.choice(SPECIALS, (B, F, Q)).astype(np.float32)
+        th[..., -1] = 3.4e38                              # the pad
+    else:
+        v = rng.choice([-3.0, -1.0, 0.5, 2.0], (B, 1, F)).astype(np.float32)
+        x = np.repeat(v, c, axis=1)
+        col = np.swapaxes(v, 1, 2)
+        th = np.concatenate([col, np.nextafter(col, np.float32(-np.inf)),
+                             np.nextafter(col, np.float32(np.inf))],
+                            axis=-1)
+        th = np.tile(th, (1, 1, -(-Q // 3)))[..., :Q]
+    wy = rng.choice([-1.0, 1.0], (B, c)).astype(np.float32)
+    return x, wy, th
+
+
+@pytest.mark.parametrize("case", [(1, 1, 1, 1, "specials"),
+                                  (2, 300, 5, 40, "specials"),
+                                  (3, 129, 9, 127, "specials"),
+                                  (2, 64, 4, 6, "constant"),
+                                  (1, 1, 2, 3, "constant")],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_special_values_match_the_pallas_kernel(case):
+    """The plain version on special values equals the Pallas kernel in
+    interpret mode bit for bit (±1 weights: exact in any order): −0.0 ≥
+    +0.0, a NaN point counts for no threshold and a NaN threshold counts
+    nothing, −inf counts every point but NaN, the pad counts +inf."""
+    x, wy, th = _special_case(*case, seed=sum(case[:4]))
+    got = ops.stump_scores(*_t(x, wy, th)).numpy()
+    pallas = np.asarray(j_ops.stump_scores(jnp.asarray(x), jnp.asarray(wy),
+                                           jnp.asarray(th), interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    finite = ~np.isnan(x)
+    want = np.einsum("bc,bcfq->bfq", wy.astype(np.float64),
+                     finite[..., None] & (x[..., None] >= th[:, None]))
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    assert not np.isnan(got).any()
+    if case[-1] == "constant":
+        np.testing.assert_array_equal(got[..., 0],
+                                      np.broadcast_to(wy.sum(-1)[:, None],
+                                                      got.shape[:2]))
+        assert (got[..., 2] == 0).all()
+
+
+@pytest.mark.parametrize("c,F,want_sl,want_tf", [
+    (1, 1, 3, 0), (65536, 8, 3, 3), (12288, 8, 3, 3), (65537, 9, 4, 4),
+    (16 * 8192 + 1, 33, 5, 5), (10 ** 6, 2, 7, 1), (0, 3, 3, 2)])
+def test_sort_plan_bounds_the_sampled_keys(c, F, want_sl, want_tf):
+    """The search keeps every 2^sl-th sorted key in shared memory, at
+    most 8192 of them, and the key pass's tile is a power of two ≥ F up
+    to 32."""
+    p = kernel.plan(2, c, F)
+    assert (p.sample_log2, p.feature_tile_log2) == (want_sl, want_tf)
+    assert p.samples == -(-c // (1 << p.sample_log2)) <= kernel.MAX_SAMPLES
 
 
 def test_batched_lanes_equal_their_unbatched_calls():
