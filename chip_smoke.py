@@ -4,9 +4,12 @@
 
 Builds the hand-written kernels from this checkout's sources (one nvcc
 per source, all at once), holds each against its plain PyTorch version
-on the card (mw_update unshifted and shifted; the stump's sort route
-on special values too; flash attention on both routes: ``wgmma`` for
-bf16, ``cuda_cores`` for float32), checks with ``cuobjdump -sass``
+on the card (mw_update unshifted and shifted, one launch a call; the
+histogram on both routes, ``sort`` and ``tiled``; the stump's sort
+route on special values too; flash attention on both routes: ``wgmma``
+for bf16, ``cuda_cores`` for float32), times each at its path's
+shapes by CUDA events around the call and by the profiler's device
+time per launch, checks with ``cuobjdump -sass``
 that the bf16 flash kernels are built from wgmma and TMA (HGMMA,
 UTMALDG), and drives the port's paths through
 ``repro_torch.launch.serve``:
@@ -15,7 +18,8 @@ UTMALDG), and drives the port's paths through
   then B = 4 tasks of m = 2^22 (132 rounds, past the 126 hits an
   unshifted float32 weight sum could hold), every task ok;
 * the feature track — HistogramTrees (F = 8, depth 2, 32 bins, coreset
-  wire mode), B = 16 tasks of m = 2^16 examples;
+  wire mode), B = 16 tasks of m = 2^16 examples, every histogram launch
+  on the kernel's ``sort`` route;
 * LM serving — deepseek-7b at full width and depth (30 layers, d_model
   4096), 4 prompts of 2048 tokens prefilled through the flash kernel
   (every launch on its wgmma route) and 32 tokens decoded greedily,
@@ -165,6 +169,40 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_breakdown(fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from
+    torch.profiler over ``calls`` calls ({} if it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "",
+                          e.key)
+            name = name.split("(")[0]
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / calls / 1e3
+    return out
+
+
+def device_ms(fn, calls: int = 50) -> tuple[float | None, dict]:
+    """Device ms per call of ``fn``, every kernel it launches summed, and
+    the same by kernel, from :func:`device_breakdown` (None where the
+    profiler records no kernel)."""
+    parts = device_breakdown(fn, calls)
+    return (sum(parts.values()) if parts else None), parts
+
+
+def fmt_ms(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
 def mw_inputs(R: int, m: int, seed: int, dead_row=False, alive_row=False,
               max_hits=120, past_126=False):
     """hits, correct, alive [R, m] and each row's least alive hit count
@@ -186,6 +224,20 @@ def mw_inputs(R: int, m: int, seed: int, dead_row=False, alive_row=False,
     return hits, correct, alive, shift
 
 
+def mw_times(ops, R: int, m: int) -> dict:
+    """mw_update at [R, m], shifted as the engine calls it: the CUDA-event
+    ms around the whole call (its wrapper's checks, allocations and the
+    launch included) and the device ms per launch from the profiler."""
+    hits, correct, alive, hmin = mw_inputs(R, m, seed=0)
+
+    def call():
+        return ops.mw_update(hits, correct, alive, hmin)
+
+    dev, parts = device_ms(call)
+    return {"shape": [R, m], "ms": time_ms(call), "device_ms": dev,
+            "device_ms_by_kernel": parts}
+
+
 def phase_kernel(ops) -> dict:
     """mw_update against its plain version at each path's shape and at
     ragged shapes, unshifted and shifted by each row's least alive hit
@@ -198,7 +250,10 @@ def phase_kernel(ops) -> dict:
         dict(R=3, m=2048 * 3 + 1, max_hits=126),
         dict(R=2, m=7, dead_row=True),
         dict(R=64, m=1 << 14, past_126=True),
-        dict(R=5, m=3001, dead_row=True, past_126=True)]
+        dict(R=5, m=3001, dead_row=True, past_126=True),
+        dict(R=3, m=1), dict(R=3, m=15), dict(R=4, m=16, dead_row=True),
+        dict(R=3, m=17), dict(R=2, m=2049, alive_row=True),
+        dict(R=3, m=16 * 2048 + 3, dead_row=True)]
     max_abs = 0.0
     for i, case in enumerate(cases):
         R, m = case.pop("R"), case.pop("m")
@@ -221,24 +276,26 @@ def phase_kernel(ops) -> dict:
                 f"bitwise")
     paths = {}
     for path, (R, m) in MW_SHAPES.items():
+        t = mw_times(ops, R, m)
         hits, correct, alive, hmin = mw_inputs(R, m, seed=0)
-        kernel_ms = time_ms(lambda: ops.mw_update(hits, correct, alive,
-                                                  hmin))
         plain_ms = time_ms(lambda: ops.mw_update(hits, correct, alive, hmin,
                                                  interpret=True), reps=20)
         bytes_moved = R * m * (4 + 1 + 1 + 4) + R * (4 + 4)
         bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        log(f"mw_update {path} shape [{R}, {m}]: kernel_ms {kernel_ms:.4f} "
-            f"plain_ms {plain_ms:.4f} bound_us {bound_ms * 1e3:.2f} "
-            f"({bytes_moved} bytes) share_of_bound "
-            f"{bound_ms / kernel_ms:.3f}")
-        paths[path] = {"shape": [R, m], "ms": kernel_ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms}
+        dev = t["device_ms"]
+        log(f"mw_update {path} shape [{R}, {m}]: kernel_ms {t['ms']:.4f} "
+            f"(CUDA events around the call) device_ms {fmt_ms(dev)} "
+            f"(profiler, per launch: {t['device_ms_by_kernel']}) plain_ms "
+            f"{plain_ms:.4f} bound_us {bound_ms * 1e3:.2f} ({bytes_moved} "
+            f"bytes) share_of_bound {bound_ms / t['ms']:.3f} (events), "
+            f"{fmt_ms(dev and bound_ms / dev)} (device)")
+        paths[path] = {**t, "plain_ms": plain_ms, "bound_ms": bound_ms}
     tree = paths["tree"]
     return {"name": "mw_update", "route": "cuda",
             "source": "src/repro_torch/kernels/mw_update/csrc/mw_update.cu",
             "replaces": "src/repro/kernels/mw_update/kernel.py:36",
             "max_abs_err": max_abs, "ms": tree["ms"],
+            "device_ms": tree["device_ms"],
             "plain_ms": tree["plain_ms"], "bound_ms": tree["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "path": "tree",
             "paths": paths}
@@ -264,6 +321,19 @@ def hist_inputs(G, N, c, F, Q, seed, dyadic=False, edges=False):
     return x, w, torch.where(flip, -w, w)
 
 
+def hist_times(ops, G: int, N: int, c: int, F: int, Q: int) -> dict:
+    """The histogram at one shape: the CUDA-event ms around the whole call
+    and the device ms per launch from the profiler."""
+    x, w, wy = hist_inputs(G, N, c, F, Q, seed=7)
+
+    def call():
+        return ops.node_histograms(x, w, wy, Q)
+
+    dev, parts = device_ms(call)
+    return {"shape": [G, N, c, F, Q], "ms": time_ms(call, reps=50, warm=5),
+            "device_ms": dev, "device_ms_by_kernel": parts}
+
+
 def phase_histogram(ops, ref) -> dict:
     """The histogram kernel against its plain version, bitwise on both
     outputs, at the tree slice's shapes and at ragged ones; returns its
@@ -276,13 +346,19 @@ def phase_histogram(ops, ref) -> dict:
              dict(G=5, N=4, c=77, F=3, Q=8, edges=True),
              dict(G=3, N=2, c=1000, F=3, Q=8, edges=True),
              dict(G=2, N=2, c=300, F=40, Q=64, edges=True),
-             dict(G=16, N=2, c=400, F=8, Q=32, dyadic=True)]
+             dict(G=16, N=2, c=400, F=8, Q=32, dyadic=True),
+             dict(G=4, N=2, c=401, F=8, Q=32, edges=True),
+             dict(G=6, N=2, c=500, F=3, Q=2, edges=True),
+             dict(G=2, N=1, c=300, F=3, Q=8192, edges=True),
+             dict(G=1, N=64, c=500, F=2, Q=8, edges=True)]
     max_abs = 0.0
     for i, case in enumerate(cases):
         x, w, wy = hist_inputs(seed=100 + i, **case)
         Q = case["Q"]
+        before = dict(ops.route_launches)
         kw, kwy = ops.node_histograms(x, w, wy, Q)
         torch.cuda.synchronize()
+        route = [r for r, n in ops.route_launches.items() if n > before[r]]
         rw, rwy = ops.node_histograms(x, w, wy, Q, interpret=True)
         check(torch.equal(kw, rw) and torch.equal(kwy, rwy),
               f"histogram differs from its plain version at {case}")
@@ -290,11 +366,16 @@ def phase_histogram(ops, ref) -> dict:
             max_abs = max(max_abs,
                           (k.double() - r.double()).abs().max().item())
         log(f"histogram {case}: hist_w and hist_wy bitwise (block "
-            f"{ref.xla_cpu_block(case['c'], case['N'])})")
+            f"{ref.xla_cpu_block(case['c'], case['N'])}, route {route})")
+    one = hist_times(ops, **{**m, "N": 1})
+    log(f"histogram G={m['G']} N=1 c={m['c']} F={m['F']} Q={m['Q']}: "
+        f"kernel_ms {one['ms']:.4f} (CUDA events around the call) "
+        f"device_ms {fmt_ms(one['device_ms'])} (profiler, per launch: "
+        f"{one['device_ms_by_kernel']})")
     G, N, c, F, Q = m["G"], m["N"], m["c"], m["F"], m["Q"]
+    t = hist_times(ops, G, N, c, F, Q)
+    kernel_ms = t["ms"]
     x, w, wy = hist_inputs(G, N, c, F, Q, seed=7)
-    kernel_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q), reps=50,
-                        warm=5)
     plain_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q,
                                                    interpret=True), reps=20)
     bins = torch.arange(Q, device="cuda")
@@ -318,7 +399,10 @@ def phase_histogram(ops, ref) -> dict:
     ops_ms = adds / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"histogram main shape G={G} N={N} c={c} F={F} Q={Q}: kernel_ms "
-        f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no "
+        f"{kernel_ms:.4f} (CUDA events around the call) device_ms "
+        f"{fmt_ms(t['device_ms'])} (profiler, per launch: "
+        f"{t['device_ms_by_kernel']}) plain_ms {plain_ms:.4f} library_ms "
+        f"none (no "
         f"single call); torch_calls_ms {torch_ms:.4f} (binning, one-hot "
         f"and torch.matmul, all timed) bound_us "
         f"{bound_ms * 1e3:.4f} ({bytes_moved} bytes, {adds} adds)")
@@ -329,8 +413,10 @@ def phase_histogram(ops, ref) -> dict:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "torch_calls_ms": torch_ms, "path": "tree",
-            "paths": {"tree": {"shape": [G, N, c, F, Q], "ms": kernel_ms,
-                               "plain_ms": plain_ms, "bound_ms": bound_ms}}}
+            "device_ms": t["device_ms"],
+            "paths": {"tree": {**t, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms},
+                      "tree_level0": one}}
 
 
 STUMP_SPECIALS = (0.0, -0.0, math.inf, -math.inf, math.nan, 3.4e38, -3.4e38)
@@ -422,25 +508,6 @@ def stump_bound(B, c, F, Q) -> tuple[float, str, float]:
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms > bytes_ms else "bytes",
             max(dense / FP32_FLOPS * 1e3, bytes_ms))
-
-
-def device_breakdown(fn, calls: int = 3) -> dict:
-    """Device ms per call of each kernel ``fn`` launches, from
-    torch.profiler over ``calls`` calls ({} if it records none)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.sub(r"^\(anonymous namespace\)::", "", e.key)
-            out[name.split("(")[0]] = e.self_device_time_total / calls / 1e3
-    return out
 
 
 def stump_torch_calls(x, wy, th):
@@ -843,6 +910,7 @@ def time_flash(ops, kernel, shape, dtype, seed) -> dict:
     B, S, H, KV, hd = shape
     q, k, v = flash_inputs(*shape, dtype, seed=seed)
     kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v), reps=20)
+    dev_ms, _ = device_ms(lambda: ops.flash_attention(q, k, v), calls=10)
     plain_ms = time_ms(lambda: ops.flash_attention(q, k, v, interpret=True),
                        reps=5, warm=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -859,7 +927,8 @@ def time_flash(ops, kernel, shape, dtype, seed) -> dict:
     bound_ms = max(ops_ms, bytes_ms)
     route = kernel.ROUTES[dtype]
     log(f"flash attention {list(shape)} {str(dtype)[6:]} route {route}: "
-        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"kernel_ms {kernel_ms:.4f} (CUDA events) device_ms "
+        f"{fmt_ms(dev_ms)} (profiler) plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} (scaled_dot_product_attention; max abs "
         f"difference from the kernel {lib_err:.3g}) bound_ms "
         f"{bound_ms:.4f} ({flops} FLOP at {peak / 1e12:.0f} TFLOP/s "
@@ -867,7 +936,8 @@ def time_flash(ops, kernel, shape, dtype, seed) -> dict:
         f"{bound_ms / kernel_ms:.4f}, {library_ms / kernel_ms:.3f} of SDPA's "
         f"speed")
     return {"shape": list(shape), "dtype": str(dtype)[6:],
-            "kernel_route": route, "ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_route": route, "ms": kernel_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "share_of_bound": bound_ms / kernel_ms}
@@ -911,6 +981,7 @@ def phase_flash(ops, kernel, build) -> dict:
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
             "max_abs_err": max_abs, "ms": main["ms"],
+            "device_ms": main["device_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "kernel_route": main["kernel_route"],
@@ -1158,13 +1229,21 @@ def main() -> int:
     check(large_out["ok"] == 4 and int(large_res.rounds.max()) > 126,
           f"large-m run: ok {large_out['ok']} of 4, rounds "
           f"{large_res.rounds.tolist()}")
-    # 5. the tree path at full size: this slice's main path
+    # 5. the tree path at full size: this slice's main path, every
+    # histogram launch on the kernel's "sort" route
+    hist_ops.route_launches = dict.fromkeys(hist_ops.route_launches, 0)
     _, res, launches = phase("tree slice", phase_slice, serve, ledger,
                              TREE_ARGS, "tree slice")
+    hist_routes = dict(hist_ops.route_launches)
     depth = int(TREE_ARGS[TREE_ARGS.index("--tree-depth") + 1])
     check(launches["histogram"] == depth * res.steps,
           f"histogram launches {launches['histogram']} != depth {depth} x "
           f"steps {res.steps}")
+    check(hist_routes == {"sort": launches["histogram"], "tiled": 0},
+          f"tree slice: histogram routes {hist_routes}, not all "
+          f"{launches['histogram']} on the sort route")
+    log(f"tree slice: histogram routes {hist_routes}")
+    entries["histogram"]["route_launches"] = hist_routes
     check(res.ok.any(), "no tree task finished")
     phase("tree profile", phase_profile, batched, serve, prng, tasks,
           TREE_ARGS, "tree", 5)

@@ -30,8 +30,13 @@
 //   one elected thread starts every TMA load and which gives its
 //   registers away (setmaxnreg 24), and two consumers of 64 query rows
 //   each (setmaxnreg 240).  ptxas still compiles every thread within the
-//   launch bound's 168 registers, so a consumer runs S, softmax and P·V
-//   in turn (no second S buffer); the two consumers overlap each other.
+//   launch bound's 168 registers (a 288-thread block, one producer warp,
+//   gets no more: its ninth warp shares an SM sub-partition's 16,384
+//   registers with two others), so a consumer runs S, softmax and P·V
+//   in turn (no second S buffer), BC keys at a time whatever the
+//   stage's BK: 64 (16 at hd 256, where O alone takes 128 registers),
+//   which keeps S and P to BC / 2 registers beside O, so every plan
+//   builds without spills; the two consumers overlap each other.
 // * TMA over the model layout: tensor maps of dims (hd, heads, S, B),
 //   boxes of 64 head-dim columns (128 bytes, one 128-byte swizzle row) ×
 //   1 head × BQ or BK rows.  Rows past S or T and columns past hd come
@@ -40,16 +45,24 @@
 // * Shared memory: the Q tile, then a ring of STAGES K/V stages, each
 //   with a full mbarrier (the producer's expect_tx, completed by the
 //   TMA bytes) and an empty one (256 consumer arrivals).
-// * S = QKᵀ: wgmma m64nBKk16 with Q and K both K-major in shared
-//   memory; the descriptors use the 128-byte swizzle the tensor maps
-//   write, on 1024-byte aligned bases.
+// * S = QKᵀ over BC keys of the stage at a time: wgmma m64nBCk16
+//   with Q and K both K-major in shared memory; the descriptors use the
+//   128-byte swizzle the tensor maps write, on 1024-byte aligned bases.
 // * Online softmax in registers in the log2 domain (the scale times
 //   log2 e folded into one FMA before ex2).  The causal and window
 //   masks are applied only on tiles that hold a masked key; a tile no
 //   row of a consumer can see is skipped by that consumer.
-// * O += P·V: P is rounded to bf16 in registers and is the A fragment
+// * O += P·V with P kept at float32 precision, as the reference keeps
+//   it: each p splits into hi = bf16(p) and lo = bf16(p − hi) (p − hi
+//   is exact), and both products go into the float32 accumulator, O +=
+//   P_hi·V + P_lo·V.  V is bf16 already, so the products are exact and
+//   hi + lo carries about 16 bits of p: a term errs by about 2^−17 of
+//   itself, not the 2^−9 of P rounded to bf16.  Both are A fragments
 //   straight from S's accumulator layout; V is the B operand read
-//   MN-major (the transpose bit), one m64nHDPk16 per 16 keys.
+//   MN-major (the transpose bit), one m64nHDPk16 per 16 keys for each
+//   of hi and lo, all in one commit group.  The fragments take the
+//   registers S leaves (8 values of S make 4 + 4 packed words), so the
+//   live set stays S's and every plan builds without spills.
 // * Epilogue: acc / max(l, 1e−30) in float32, cast to bf16 into the
 //   consumer's own rows of the Q tile (swizzled), and a TMA store that
 //   clips rows at or past S and columns at or past hd.
@@ -439,6 +452,19 @@ __device__ __forceinline__ void reg_fence(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+// D[64, 16] += A·Bᵀ, A [64, 16] and B [16, 16] K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // D[64, 64] += A·Bᵀ, A [64, 16] and B [64, 16] K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db) {
@@ -456,36 +482,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D[64, 128] += A·Bᵀ, A [64, 16] and B [128, 16] K-major in shared
-// memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -633,6 +629,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 }
 
 
+// D[64, 16] = A·Bᵀ (D not read: its old value need not stay live).
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[8], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // D[64, 64] = A·Bᵀ (D not read: its old value need not stay live).
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
                                                uint64_t db) {
@@ -653,39 +662,18 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
-// D[64, 128] = A·Bᵀ (D not read: its old value need not stay live).
-__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
-        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
-        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
-        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
-        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as two packed bf16 words: hi = bf16(a, b) and lo = bf16 of
+// what hi leaves out, (a − hi_a, b − hi_b), both differences exact.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -714,7 +702,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
   constexpr int NCH = HDP / CHUNK;                  // 64-column chunks
   constexpr uint32_t QCH = BQ * 128, KCH = BK * 128;   // bytes per chunk
   constexpr uint32_t Q_BYTES = NCH * QCH, KV_BYTES = NCH * KCH;
-  static_assert(BK == 64 || BK == 128, "QKᵀ is one m64nBKk16 per k-step");
+  // keys a consumer computes at a time: S and P take BC / 2 registers a
+  // thread beside O's HDP / 2, within ptxas's 168
+  constexpr int BC = HDP > 192 ? 16 : 64;
+  static_assert(BK % BC == 0, "a stage is whole steps of BC keys");
   static_assert(smem_bytes(HDP, BK, STAGES) <= 232448, "shared memory");
 
   extern __shared__ uint8_t smem_raw[];
@@ -784,29 +775,32 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int qw0 = q0 + 64 * cw;                   // first query row
     const int qa = qw0 + ra, qb = qw0 + rb;
 
-    // O [64, HDP] and S [64, BK] in the wgmma accumulator layout: of
+    // O [64, HDP] and S [64, BC] in the wgmma accumulator layout: of
     // every 8 columns, entries 0-1 are row ra's pair, 2-3 row rb's
     float o[HDP / 2];
 #pragma unroll
     for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
-    float s[BK / 2];
-    uint32_t pa[BK / 16][4];
+    float s[BC / 2];
+    uint32_t ph[BC / 16][4], pl[BC / 16][4];   // P's hi and lo fragments
     float m_a = -1e30f, m_b = -1e30f, l_a = 0.f, l_b = 0.f;
     const float neg_inf = __int_as_float(0xff800000);
 
     mbar_wait(q_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % STAGES;
-      const int k0 = k_first + it * BK;
       mbar_wait(full0 + 8 * st, (it / STAGES) & 1);
-      // no row of this consumer sees the tile: skip it (uniform over
-      // the warpgroup, as wgmma needs)
-      const bool skip = k0 > qw0 + 63 ||
-                        (window > 0 && k0 + BK - 1 <= qw0 - window);
-      if (!skip) {
-        const uint32_t ks = k_s + st * KV_BYTES, vs = v_s + st * KV_BYTES;
+#pragma unroll
+      for (int hc = 0; hc < BK / BC; ++hc) {
+        // keys [k0, k0 + BC) of the stage, rows hc·BC.. of its K and V
+        const int k0 = k_first + it * BK + hc * BC;
+        // no row of this consumer sees them: skip (uniform over the
+        // warpgroup, as wgmma needs)
+        if (k0 > qw0 + 63 || (window > 0 && k0 + BC - 1 <= qw0 - window))
+          continue;
+        const uint32_t ks = k_s + st * KV_BYTES + hc * BC * 128;
+        const uint32_t vs = v_s + st * KV_BYTES + hc * BC * 128;
         // S = Q Kᵀ over HDP / 16 k-steps; the first overwrites S, so
-        // the last tile's S is dead while P·V runs
+        // the last step's S is dead while P·V runs
         wgmma_fence();
         wgmma_ss_first(s, sw128_desc(q_s + cw * 64 * 128), sw128_desc(ks));
 #pragma unroll
@@ -818,13 +812,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int i = 0; i < BK / 2; ++i) reg_fence(s[i]);
+        for (int i = 0; i < BC / 2; ++i) reg_fence(s[i]);
 
-        // masks, only where the tile holds a masked key for some row
-        if (k0 + BK - 1 > qw0 || k0 + BK > Tk ||
+        // masks, only where the keys hold a masked one for some row
+        if (k0 + BC - 1 > qw0 || k0 + BC > Tk ||
             (window > 0 && k0 <= qw0 + 63 - window)) {
 #pragma unroll
-          for (int i = 0; i < BK / 2; ++i) {
+          for (int i = 0; i < BC / 2; ++i) {
             const int kpos = k0 + 8 * (i / 4) + cp + (i & 1);
             const int qpos = (i & 2) ? qb : qa;
             const bool live = kpos <= qpos && kpos < Tk &&
@@ -835,7 +829,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         // online softmax, log2 domain
         float mx_a = neg_inf, mx_b = neg_inf;
 #pragma unroll
-        for (int i = 0; i < BK / 2; i += 4) {
+        for (int i = 0; i < BC / 2; i += 4) {
           mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
           mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
         }
@@ -846,7 +840,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
         m_b = mn_b;
         float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-        for (int i = 0; i < BK / 2; i += 4) {
+        for (int i = 0; i < BC / 2; i += 4) {
           s[i] = ex2(fmaf(s[i], sl2, -mn_a));
           s[i + 1] = ex2(fmaf(s[i + 1], sl2, -mn_a));
           s[i + 2] = ex2(fmaf(s[i + 2], sl2, -mn_b));
@@ -863,31 +857,36 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
           o[i + 2] *= al_b;
           o[i + 3] *= al_b;
         }
-        // P as bf16 A fragments: keys 16kk.. of S's accumulator are
-        // exactly the m64nNk16 A layout
+        // P = hi + lo as bf16 A fragments: keys 16kk.. of S's
+        // accumulator are exactly the m64nNk16 A layout
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        }
-        // O += P V over BK / 16 k-steps, one m64nHDPk16 each: V's
-        // 64-column chunks lie KCH apart
+        for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e],
+                       pl[kk][e]);
+        // O += P_hi V + P_lo V over BC / 16 k-steps, two m64nHDPk16
+        // each: V's 64-column chunks lie KCH apart
         wgmma_fence();
 #pragma unroll
         for (int i = 0; i < HDP / 2; ++i) reg_fence(o[i]);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs(o, pa[kk], sw128_desc(vs + kk * 16 * 128, KCH));
+        for (int kk = 0; kk < BC / 16; ++kk) {
+          const uint64_t dv = sw128_desc(vs + kk * 16 * 128, KCH);
+          wgmma_rs(o, ph[kk], dv);
+          wgmma_rs(o, pl[kk], dv);
+        }
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
         for (int i = 0; i < HDP / 2; ++i) reg_fence(o[i]);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
+        for (int kk = 0; kk < BC / 16; ++kk)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) reg_fence(pa[kk][e]);
+          for (int e = 0; e < 4; ++e) {
+            reg_fence(ph[kk][e]);
+            reg_fence(pl[kk][e]);
+          }
       }
       mbar_arrive(empty0 + 8 * st);         // the stage may be refilled
     }

@@ -64,8 +64,10 @@ def plan(hd: int, dtype: torch.dtype) -> TilePlan:
 
     wgmma: BQ = 128 queries (two consumer warpgroups of 64), the head
     dim rounded up to whole TMA boxes of 64 columns, BK = 128 keys up
-    to hd 128 and 64 above, and as many ring stages (at most 4) as fit
-    beside the Q tile in the block's shared memory.  cuda_cores: 64
+    to hd 128 and 64 above, each computed BC = 64 keys at a time (16 at
+    hd 256, so that S and P fit in ptxas's 168 registers a thread beside
+    O), and as many ring stages (at most 4) as fit beside the Q tile in
+    the block's shared memory.  cuda_cores: 64
     queries and 64 keys, float32 tiles with padded rows; its grid is
     (B·H, query tiles), so ``head_group`` does not apply."""
     if dtype not in ROUTES:
@@ -78,12 +80,13 @@ def plan(hd: int, dtype: torch.dtype) -> TilePlan:
     if ROUTES[dtype] == "wgmma":
         hdp = -(-hd // TMA_COLUMNS) * TMA_COLUMNS
         bq, bk = 128, 128 if hdp <= 128 else 64
+        bc = 64 if hdp <= 192 else 16
         q_bytes, stage_bytes = bq * hdp * 2, 2 * bk * hdp * 2
         room = SMEM_LIMIT - SMEM_ALIGN - q_bytes - BARRIER_BYTES
         stages = min(MAX_STAGES, room // stage_bytes)
         return TilePlan("wgmma", bq, bk, stages, 384,
                         SMEM_ALIGN + q_bytes + stages * stage_bytes
-                        + BARRIER_BYTES, hdp, (bk, TMA_COLUMNS),
+                        + BARRIER_BYTES, hdp, (bc, TMA_COLUMNS),
                         HEAD_GROUP)
     dpt = 1 << max(0, (-(-hd // 16) - 1).bit_length())   # columns a thread
     ld = hd + 4

@@ -12,28 +12,50 @@
 // a sequential grid and contract a one-hot block on the MXU; nothing of
 // that grid carries over.
 //
+// The float order is part of the function: each entry sums its points
+// in k-blocks of `block` points (each block left to right from +0, the
+// block sums added in order), the order XLA:CPU's dot uses for the
+// reference's histogram, and ref.py repeats it, so the card, the CPU and
+// the reference agree bit for bit.  No atomics and no tensor cores (TF32
+// would drop mantissa bits).
+//
 // Bound: at the engine's shapes (B = 16, c = 400, F = 8, Q = 32, N <= 2)
 // the kernel reads about 0.2 MB and writes 0.13 MB, a fraction of a
-// microsecond at 3.35 TB/s, and does c * F * Q compares per (g, n): far
-// below one launch.  It is launch-bound; the engine launches it once per
-// tree level per round.
+// microsecond at 3.35 TB/s, and does one add per (point, node, feature):
+// far below one launch.  What it costs is latency: the chain of adds
+// each output waits on, and the steps of the launch itself.
 //
-// Design, simple and exact about order: one CTA per (g, n) pair and per
-// 256 outputs; one thread per (f, q) output.  The CTA stages a tile of
+// Route "sort" (every shape whose per-column state fits in shared
+// memory; the engine's shapes): one CTA per (g, f) column.  The CTA
+// bins the column's c points once into shared memory and stages the
+// weights of its task's N nodes.  A stable counting sort orders the
+// point indices by bin: each warp takes a run of consecutive points and
+// counts them by bin (__match_any_sync groups the lanes of a bin, the
+// group's last lane adds its size); a scan over the warps and the bins
+// turns the counts into each warp's first slot per bin; a second walk
+// ranks each point by its slot plus the lanes of its group below it,
+// which keeps index order within a bin.  Then one thread per (n, q)
+// output walks its bin's run in index order, restarting its partial
+// from +0 at each k-block boundary and adding the partial to the total
+// when a block ends, for w and wy side by side.  The chain is a bin's
+// points, about c / Q, not c.  Skipping the points outside the bin
+// keeps the bits: a partial that starts at +0 is never -0 under
+// round-to-nearest ((+0) + (-0) = +0, x + (-x) = +0), so adding the
+// +0.0 the other points contribute leaves it as it is, for NaN and
+// +-inf weights too, and an empty block adds +0 to a total that is
+// never -0.
+//
+// Route "tiled" (the kernel's first design, for shapes whose column
+// state does not fit: large Q or N): one CTA per (g, n) pair and per 256
+// outputs, one thread per (f, q) output; the CTA stages a tile of
 // points' bin ids (int16) and both weights in shared memory, then each
-// thread walks the points in index order and adds the weights of the
-// points in its bin.  The sum runs in k-blocks of `block` points (each
-// block left to right from +0, the block sums added in order), the order
-// XLA:CPU's dot uses for the reference's histogram, and ref.py repeats
-// it: the card, the CPU and the reference agree bit for bit.  No atomics
-// and no tensor cores (TF32 would drop mantissa bits).
+// thread walks all c points in index order and adds the weights of the
+// points in its bin.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ int16_t bin_of(float v, int bins) {
   float t = floorf(__fmul_rn(v, static_cast<float>(bins)));
@@ -42,11 +64,150 @@ __device__ __forceinline__ int16_t bin_of(float v, int bins) {
   return static_cast<int16_t>(t);
 }
 
+// ---------------------------------------------------------------------
+// route "sort"
+// ---------------------------------------------------------------------
+namespace sorted {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Shared memory of one CTA, in order: w and wy float32 [N][c], the
+// per-warp bin slots int32 [kWarps][bins], the bins' first slots int32
+// [bins + 1], the points' bins and the sorted point indices uint16 [c]
+// each.
+size_t smem_bytes(int N, int c, int bins) {
+  return 4 * (2 * static_cast<size_t>(N) * c +
+              static_cast<size_t>(kWarps) * bins + bins + 1) +
+         2 * 2 * static_cast<size_t>(c);
+}
+
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ wy, float* __restrict__ hw,
-            float* __restrict__ hwy, int N, int c, int F, int bins,
-            int block, int tile) {
+hist_sort(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ wy, float* __restrict__ hw,
+          float* __restrict__ hwy, int N, int c, int F, int bins,
+          int block) {
+  extern __shared__ float smem[];
+  float* const w_s = smem;                                  // [N][c]
+  float* const wy_s = w_s + static_cast<size_t>(N) * c;     // [N][c]
+  int* const slot = reinterpret_cast<int*>(wy_s + static_cast<size_t>(N) * c);
+  int* const first = slot + kWarps * bins;                  // [bins + 1]
+  uint16_t* const bin_s = reinterpret_cast<uint16_t*>(first + bins + 1);
+  uint16_t* const order = bin_s + c;
+
+  const int f = blockIdx.x;
+  const int64_t g = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float* xg = x + g * c * F;
+  const float* wg = w + g * N * c;
+  const float* wyg = wy + g * N * c;
+  for (int e = tid; e < N * c; e += kThreads) {
+    w_s[e] = wg[e];
+    wy_s[e] = wyg[e];
+  }
+  for (int i = tid; i < c; i += kThreads)
+    bin_s[i] = static_cast<uint16_t>(
+        bin_of(xg[static_cast<int64_t>(i) * F + f], bins));
+  for (int e = tid; e < kWarps * bins; e += kThreads) slot[e] = 0;
+  __syncthreads();
+
+  // warp `warp` owns points [i0, i1), whole 32-point steps but the last
+  const int per = ((c + 31) / 32 + kWarps - 1) / kWarps * 32;
+  const int i0 = min(c, warp * per), i1 = min(c, i0 + per);
+  int* const mine = slot + warp * bins;
+  for (int s = i0; s < i1; s += 32) {          // count by bin
+    const int i = s + lane;
+    const bool live = i < i1;
+    const uint32_t b = live ? bin_s[i] : 0xffffu;
+    const uint32_t same = __match_any_sync(0xffffffffu, b);
+    if (live && lane == 31 - __clz(same)) mine[b] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+  // each warp's first slot per bin, bins counted from 0: warp 0 scans
+  // the bins, each lane a run of `span` bins
+  if (warp == 0) {
+    const int span = (bins + 31) / 32;
+    const int q0 = min(bins, lane * span), q1 = min(bins, q0 + span);
+    int run = 0;
+    for (int q = q0; q < q1; ++q) {
+      int tot = 0;
+      for (int v = 0; v < kWarps; ++v) {
+        const int n = slot[v * bins + q];
+        slot[v * bins + q] = tot;
+        tot += n;
+      }
+      first[q] = run;                           // within this lane's span
+      run += tot;
+    }
+    int incl = run;                             // scan the lanes' spans
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int before = incl - run;
+    for (int q = q0; q < q1; ++q) first[q] += before;
+    if (lane == 31) first[bins] = incl;
+  }
+  __syncthreads();
+  for (int e = tid; e < kWarps * bins; e += kThreads)
+    slot[e] += first[e % bins];
+  __syncthreads();
+  for (int s = i0; s < i1; s += 32) {          // stable ranks
+    const int i = s + lane;
+    const bool live = i < i1;
+    const uint32_t b = live ? bin_s[i] : 0xffffu;
+    const uint32_t same = __match_any_sync(0xffffffffu, b);
+    const int below = __popc(same & ((1u << lane) - 1u));
+    if (live) order[mine[b] + below] = static_cast<uint16_t>(i);
+    __syncwarp();
+    if (live && lane == 31 - __clz(same)) mine[b] += __popc(same);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // one thread per (n, q): its bin's points in index order, k-blocks of
+  // `block` points
+  for (int o = tid; o < N * bins; o += kThreads) {
+    const int n = o / bins, q = o - n * bins;
+    const float* wn = w_s + static_cast<size_t>(n) * c;
+    const float* wyn = wy_s + static_cast<size_t>(n) * c;
+    const int r0 = first[q], r1 = first[q + 1];
+    float tot_w = 0.0f, tot_wy = 0.0f, part_w = 0.0f, part_wy = 0.0f;
+    int next = r0 < r1 ? (order[r0] / block + 1) * block : 0;  // block end
+    for (int r = r0; r < r1; ++r) {
+      const int i = order[r];
+      if (i >= next) {                          // a k-block ends
+        tot_w = tot_w + part_w;
+        tot_wy = tot_wy + part_wy;
+        part_w = 0.0f;
+        part_wy = 0.0f;
+        next = (i / block + 1) * block;
+      }
+      part_w = part_w + wn[i];
+      part_wy = part_wy + wyn[i];
+    }
+    const int64_t out = ((g * N + n) * F + f) * bins + q;
+    hw[out] = tot_w + part_w;
+    hwy[out] = tot_wy + part_wy;
+  }
+}
+
+}  // namespace sorted
+
+// ---------------------------------------------------------------------
+// route "tiled"
+// ---------------------------------------------------------------------
+namespace tiled {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+hist_tiled(const float* __restrict__ x, const float* __restrict__ w,
+           const float* __restrict__ wy, float* __restrict__ hw,
+           float* __restrict__ hwy, int N, int c, int F, int bins,
+           int block, int tile) {
   extern __shared__ float smem[];
   float* w_s = smem;
   float* wy_s = smem + tile;
@@ -98,25 +259,54 @@ hist_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+}  // namespace tiled
+
 }  // namespace
 
 // x: float32 [G, c, F]; w, wy: float32 [G, N, c]; hw, hwy: float32
-// [G, N, F, bins]; `block` the k-block width of the summation order,
-// `tile` the points staged per pass (shared memory: tile * (8 + 2F)
-// bytes).  Enqueues one launch on `stream` and returns
-// cudaGetLastError().
+// [G, N, F, bins]; `block` the k-block width of the summation order.
+// route 0 ("sort"): `smem` must be sorted::smem_bytes(N, c, bins) (the
+// layout kernel.py's plan computes), c < 65536; route 1 ("tiled"):
+// `tile` points staged per pass, `smem` tile * (8 + 2F) bytes.
+// Enqueues one launch on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a plan it does not take).
 extern "C" int histogram_launch(const void* x, const void* w,
                                 const void* wy, void* hw, void* hwy, int G,
                                 int N, int c, int F, int bins, int block,
-                                int tile, void* stream) {
-  const int fq = F * bins;
-  const dim3 grid(static_cast<unsigned>(G) * static_cast<unsigned>(N),
-                  (fq + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(tile) *
-                      (2 * sizeof(float) + F * sizeof(int16_t));
-  hist_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(wy), static_cast<float*>(hw),
-      static_cast<float*>(hwy), N, c, F, bins, block, tile);
+                                int route, int tile, long long smem,
+                                void* stream) {
+  if (G <= 0 || N <= 0 || c <= 0 || F <= 0 || bins < 2 || block <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  const float* wyp = static_cast<const float*>(wy);
+  float* hwp = static_cast<float*>(hw);
+  float* hwyp = static_cast<float*>(hwy);
+  if (route == 0) {
+    if (c >= 65536 || G > 65535 ||
+        smem != static_cast<long long>(sorted::smem_bytes(N, c, bins)))
+      return cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sorted::hist_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    sorted::hist_sort<<<dim3(F, G), sorted::kThreads, smem, s>>>(
+        xp, wp, wyp, hwp, hwyp, N, c, F, bins, block);
+  } else if (route == 1) {
+    if (tile <= 0 ||
+        smem != static_cast<long long>(tile) *
+                    (2 * sizeof(float) + F * sizeof(int16_t)))
+      return cudaErrorInvalidValue;
+    const int fq = F * bins;
+    const dim3 grid(static_cast<unsigned>(G) * static_cast<unsigned>(N),
+                    (fq + tiled::kThreads - 1) / tiled::kThreads);
+    tiled::hist_tiled<<<grid, tiled::kThreads, smem, s>>>(
+        xp, wp, wyp, hwp, hwyp, N, c, F, bins, block, tile);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,11 @@ A CPU tensor (or ``interpret=True`` on any device) goes to the plain
 version in ``ref.py``; a CUDA tensor goes to the hand-written kernel
 and nowhere else — a failed build or launch raises.  ``launches``
 counts kernel launches (the plain version never adds to it), so a run
-can show that its main path went through the kernel.  Both versions
-sum in the order :func:`ref.xla_cpu_block` picks for the call's shape.
+can show that its main path went through the kernel, and
+``route_launches`` splits them by the kernel's route (``kernel.plan``:
+``"sort"`` wherever a column's state fits in shared memory, the
+engine's shapes included; ``"tiled"`` otherwise).  Both versions sum in
+the order :func:`ref.xla_cpu_block` picks for the call's shape.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from repro_torch.kernels.histogram.ref import (  # noqa: F401 (re-export)
     best_splits_per_feature, best_splits_ref, bin_index)
 
 launches = 0
+route_launches = {"sort": 0, "tiled": 0}
 
 
 def node_histograms(x: torch.Tensor, w: torch.Tensor, wy: torch.Tensor,
@@ -63,9 +67,10 @@ def node_histograms(x: torch.Tensor, w: torch.Tensor, wy: torch.Tensor,
     wyc = wy.reshape(G, N, c).contiguous()
     hw = torch.empty((G, N, F, bins), dtype=torch.float32, device=x.device)
     hwy = torch.empty_like(hw)
-    kernel.launch(xc, wc, wyc, hw, hwy, bins, block,
-                  torch.cuda.current_stream(x.device))
+    route = kernel.launch(xc, wc, wyc, hw, hwy, bins, block,
+                          torch.cuda.current_stream(x.device))
     launches += 1
+    route_launches[route] += 1
     shape = lead + (N, F, bins)
     return hw.reshape(shape), hwy.reshape(shape)
 

@@ -27,7 +27,7 @@ def mw_update(hits: torch.Tensor, correct: torch.Tensor,
     stay normal floats; all on one device and contiguous.  Returns
     (new_hits int32 [R, m], wsum float32 [R]); new_hits is a fresh
     tensor.  The ragged edge (m not a multiple of the kernel's block)
-    is masked inside both versions.
+    is masked inside both versions, which sum in one order (``ref.py``).
     """
     global launches
     if hits.dtype != torch.int32 or correct.dtype != torch.bool \
@@ -60,10 +60,8 @@ def mw_update(hits: torch.Tensor, correct: torch.Tensor,
     from repro_torch.kernels.mw_update import kernel
 
     new_hits = torch.empty_like(hits)
-    partials = torch.empty((R, -(-m // ref.BLOCK)), dtype=torch.float32,
-                           device=hits.device)
     wsum = torch.empty((R,), dtype=torch.float32, device=hits.device)
-    kernel.launch(hits, correct, alive, shift.contiguous(), new_hits,
-                  partials, wsum, torch.cuda.current_stream(hits.device))
+    kernel.launch(hits, correct, alive, shift.contiguous(), new_hits, wsum,
+                  torch.cuda.current_stream(hits.device))
     launches += 1
     return new_hits, wsum

@@ -12,16 +12,17 @@ from __future__ import annotations
 
 import torch
 
-THREADS = 256            # lanes of one block
+THREADS = 256            # lanes of one block (the kernel's 128 threads
+                         # add two lanes each)
 ITEMS = 8                # elements each lane reads, THREADS apart
 BLOCK = THREADS * ITEMS  # elements per block partial
 WARP = 32
 
 
 def pow2_neg(h: torch.Tensor) -> torch.Tensor:
-    """2^−h as float32, exact (``ldexpf(1, shift − hits)`` in the
-    kernel, h = hits − shift), for int32 h ≥ 0: normal down to 2^−126,
-    subnormal to 2^−149, then 0."""
+    """2^−h as float32, exact and built from its bits as the kernel
+    builds 2^(shift − hits) (h = hits − shift, clamped to [0, 150]):
+    normal down to 2^−126, subnormal to 2^−149, then 0."""
     h = h.clamp(0, 150)
     normal = (127 - h) << 23
     sub = torch.where(h <= 149, 1 << (149 - h).clamp(0, 22), 0)

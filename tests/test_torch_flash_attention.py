@@ -128,7 +128,8 @@ def test_wgmma_tile_plan_fits_the_card(hd):
     assert 2 <= p.stages <= kernel.MAX_STAGES
     # wgmma m64nNk16: N a multiple of 8 up to 256, a K step of 16 bf16
     assert kernel.K_STEP == 16
-    assert p.mma_n == (p.block_k, 64)
+    assert p.mma_n == (64 if p.head_dim_padded <= 192 else 16, 64)
+    assert p.block_k % p.mma_n[0] == 0                  # whole S steps
     for n in p.mma_n:
         assert n % 8 == 0 and 8 <= n <= 256
     assert p.head_dim_padded % kernel.K_STEP == 0       # QKᵀ's depth

@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels.histogram import kernel as j_kernel
 from repro.kernels.histogram import ref as j_ref
-from repro_torch.kernels.histogram import ops, ref
+from repro_torch.kernels.histogram import kernel, ops, ref
 
 # the inputs are small: torch's intra-op threads only contend with the
 # other test workers
@@ -130,3 +130,95 @@ def test_histogram_rejects_bad_inputs():
         ops.node_histograms(x, w, w, 6)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ops.node_histograms(x, w, w, 8, interpret=False)
+
+
+def _sort_route_model(x, w, wy, Q, block):
+    """A numpy float32 model of the CUDA kernel's "sort" route: each
+    (task, feature) column's points stably ordered by bin; each (node,
+    bin) entry adds its bin's points in index order, from +0, restarting
+    the partial at each k-block boundary and adding it to the total when
+    a block ends.  The points outside the bin are skipped, not added as
+    +0.0."""
+    G, c, F = x.shape
+    N = w.shape[1]
+    b = ref.bin_index(torch.from_numpy(x), Q).numpy()
+    out = [np.zeros((G, N, F, Q), np.float32) for _ in range(2)]
+    zero = np.float32(0.0)
+    with np.errstate(all="ignore"):            # inf − inf, NaN
+        for g in range(G):
+            for f in range(F):
+                order = np.argsort(b[g, :, f], kind="stable")
+                first = np.searchsorted(b[g, order, f], np.arange(Q + 1))
+                for n in range(N):
+                    for q in range(Q):
+                        run = order[first[q]:first[q + 1]]
+                        for k, v in enumerate((w, wy)):
+                            tot, part, end = zero, zero, -1
+                            for i in run:
+                                if i >= end:            # a k-block ends
+                                    if end >= 0:
+                                        tot = np.float32(tot + part)
+                                        part = zero
+                                    end = (i // block + 1) * block
+                                part = np.float32(part + v[g, n, i])
+                            out[k][g, n, f, q] = np.float32(tot + part)
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, ±0.0 apart; NaN where the other is NaN (its
+    payload follows the operand order the compiler picks)."""
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a.view(np.uint32)[~nan],
+                                  b.view(np.uint32)[~nan])
+
+
+@pytest.mark.parametrize("G,N,c,F,Q,block", [(16, 2, 400, 8, 32, 200),
+                                             (3, 2, 1000, 3, 8, 250)])
+def test_sort_route_summation_equals_the_plain_version(G, N, c, F, Q,
+                                                       block):
+    """The kernel's "sort" route sums only a bin's own points, in index
+    order, in k-blocks; the plain version adds +0.0 for every point
+    outside the bin.  The same bits, ±0.0, ±inf and NaN weights
+    included: a partial that starts at +0 never becomes −0."""
+    assert ref.xla_cpu_block(c, N) == block
+    rng = np.random.default_rng(c)
+    x = (rng.random((G, c, F)) * 1.3 - 0.15).astype(np.float32)
+    x[0, 0, 0] = np.nan
+    w = (rng.random((G, N, c)) / c).astype(np.float32)
+    w[rng.random((G, N, c)) < 0.3] = 0.0
+    wy = np.where(rng.random((G, N, c)) < 0.5, -w, w).astype(np.float32)
+    for v in (w, wy):
+        for special in (0.0, -0.0, np.inf, -np.inf, np.nan):
+            for g in range(G):
+                for n in range(N):
+                    v[g, n, rng.choice(c, 2, replace=False)] = special
+    want = ref.node_histograms_ref(*(torch.from_numpy(a) for a in (x, w, wy)),
+                                   Q, block)
+    got = _sort_route_model(x, w, wy, Q, block)
+    for a, b in zip(got, want):
+        assert np.isfinite(a).any() and np.isnan(a).any()
+        _same_bits(a, b.numpy())
+
+
+def test_plan_routes_the_engine_shapes_to_sort():
+    """Every shape the engine and chip_smoke.py launch takes the "sort"
+    route (c ≤ 1000, Q ≤ 64, F ≤ 40); a column whose state does not fit
+    in a block's shared memory takes the "tiled" one."""
+    for G, N, c, F, Q in [(16, 1, 400, 8, 32), (16, 2, 400, 8, 32),
+                          (64, 2, 100, 8, 32), (5, 4, 77, 3, 8),
+                          (3, 2, 1000, 3, 8), (2, 2, 300, 40, 64),
+                          (16, 2, 1000, 40, 64)]:
+        p = kernel.plan(G, N, c, F, Q)
+        assert p.route == "sort" and p.tile == 0
+        assert p.smem_bytes == kernel.sort_smem_bytes(N, c, Q) \
+            <= kernel.SMEM_LIMIT
+    assert kernel.sort_smem_bytes(2, 400, 32) == \
+        4 * (2 * 2 * 400 + 8 * 32 + 33) + 4 * 400
+    for G, N, c, F, Q in [(2, 1, 300, 3, 8192), (1, 64, 500, 2, 8),
+                          (1, 1, 70000, 2, 8), (70000, 1, 10, 2, 8)]:
+        p = kernel.plan(G, N, c, F, Q)
+        assert p.route == "tiled"
+        assert p.tile == kernel.tile_rows(F)
+        assert p.smem_bytes == p.tile * (2 * F + 8)

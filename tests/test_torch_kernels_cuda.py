@@ -3,10 +3,12 @@ card: mw_update and the histogram bit for bit, the stump contraction
 bit for bit on ±1 and dyadic weights and within rtol 1e-5 plus atol
 1e-6·Σ|wy| on float weights, flash attention at the reference's
 tolerances (2e-5 in float32 on its CUDA-core route, 2e-2 in bf16 on its
-wgmma route; the kernel sums in another order, and the wgmma route
-rounds P to bf16 before P·V).  Every test here needs a CUDA device and
-skips on a host without one; the file imports no JAX, so it runs where
-only the port is installed:
+wgmma route, where the inputs and the output are bf16 and the kernel
+sums in another order), and within 1e-4 on rows built so that P's
+rounding would show (the wgmma route keeps P at float32 precision, as
+the reference does).  Every test here needs a CUDA device and skips on
+a host without one; the file imports no JAX, so it runs where only the
+port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.histogram import kernel as hist_kernel
 from repro_torch.kernels.histogram import ops as hist_ops
+from repro_torch.kernels.histogram import ref as hist_ref
 from repro_torch.kernels.mw_update import ops as mw_ops
 from repro_torch.kernels.stump import ops as stump_ops
 
@@ -53,17 +57,24 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", HIST_SHAPES, ids=str)
-def test_histogram_kernel_matches_plain_version(card, shape):
-    G, N, c, F, Q = shape
-    g = torch.Generator(device=card).manual_seed(G * c)
+def _hist_case(card, G, N, c, F, Q, seed, one_bin=False):
+    g = torch.Generator(device=card).manual_seed(seed)
     x = torch.rand((G, c, F), generator=g, device=card) * 1.6 - 0.3
     x[0, 0, 0] = math.nan
+    if one_bin:                  # every point of a column in one bin
+        x = x[:, :1].expand(G, c, F).contiguous()
     w = torch.rand((G, N, c), generator=g, device=card) / c
     w[:, :, ::3] = 0.0
     wy = torch.where(torch.rand((G, N, c), generator=g, device=card) < 0.5,
                      -w, w)
+    return x, w, wy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HIST_SHAPES, ids=str)
+def test_histogram_kernel_matches_plain_version(card, shape):
+    G, N, c, F, Q = shape
+    x, w, wy = _hist_case(card, G, N, c, F, Q, seed=G * c)
     before = hist_ops.launches
     kw, kwy = hist_ops.node_histograms(x, w, wy, Q)
     torch.cuda.synchronize()
@@ -73,7 +84,40 @@ def test_histogram_kernel_matches_plain_version(card, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,m", [(64, 1 << 18), (5, 3001), (2, 7)])
+@pytest.mark.parametrize("shape,one_bin", [
+    ((4, 2, 400, 8, 32), True), ((3, 1, 1000, 2, 8), True),
+    ((4, 2, 399, 8, 32), False), ((4, 2, 400, 8, 32), False),
+    ((4, 2, 401, 8, 32), False), ((3, 2, 1000, 5, 16), False),
+    ((6, 2, 500, 3, 2), False), ((5, 4, 600, 3, 32), False),
+    ((2, 1, 300, 3, 8192), False), ((1, 64, 500, 2, 8), False)], ids=str)
+def test_histogram_kernel_edges_and_routes(card, shape, one_bin):
+    """Bitwise against the plain version where a bin's chain is all c
+    points, at c across k-block edges (399, 400, 401 at N = 2; 1000),
+    at Q = 2, at N = 4, and on the second route, whose shapes do not
+    fit a column's state in shared memory; each launch counted on the
+    route ``kernel.plan`` names."""
+    G, N, c, F, Q = shape
+    x, w, wy = _hist_case(card, G, N, c, F, Q, seed=c + Q, one_bin=one_bin)
+    route = hist_kernel.plan(G, N, c, F, Q).route
+    assert route == ("tiled" if Q == 8192 or N == 64 else "sort")
+    before = dict(hist_ops.route_launches)
+    kw, kwy = hist_ops.node_histograms(x, w, wy, Q)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in hist_ops.route_launches.items()} \
+        == {r: int(r == route) for r in hist_kernel.ROUTES}
+    rw, rwy = hist_ops.node_histograms(x, w, wy, Q, interpret=True)
+    assert torch.equal(kw, rw) and torch.equal(kwy, rwy)
+    if one_bin:
+        assert int((kw != 0).sum()) <= G * N * F
+    if hist_ref.xla_cpu_block(c, N) < c:
+        rows = hist_ref.node_histograms_ref(x, w, wy, Q, c)
+        assert not (torch.equal(rows[0], rw) and torch.equal(rows[1], rwy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m", [(64, 1 << 18), (5, 3001), (2, 7), (3, 1),
+                                 (3, 15), (4, 16), (3, 17), (2, 2049),
+                                 (64, 1 << 14), (3, 16 * 2048 + 3)])
 def test_mw_update_kernel_matches_plain_version(card, R, m):
     g = torch.Generator(device=card).manual_seed(m)
     hits = torch.randint(0, 127, (R, m), generator=g, device=card,
@@ -87,6 +131,30 @@ def test_mw_update_kernel_matches_plain_version(card, R, m):
     assert mw_ops.launches == before + 1
     rh, rw = mw_ops.mw_update(hits, correct, alive, interpret=True)
     assert torch.equal(kh, rh) and torch.equal(kw, rw)
+
+
+@pytest.mark.cuda
+def test_mw_update_same_bits_over_50_launches(card):
+    """50 launches back to back on one stream give the plain version's
+    bits: rows of 21 tiles are three CTAs (8, 8 and 5 tiles), each
+    row's arrival count is reset by the launch that used it, and the
+    row's last CTA folds the partials in tile order whichever CTA
+    arrives last."""
+    R, m = 64, 20 * 2048 + 16
+    g = torch.Generator(device=card).manual_seed(50)
+    hits = torch.randint(0, 120, (R, m), generator=g, device=card,
+                         dtype=torch.int32)
+    correct = torch.rand((R, m), generator=g, device=card) < 0.7
+    alive = torch.rand((R, m), generator=g, device=card) < 0.95
+    shift = torch.where(alive, hits, torch.iinfo(torch.int32).max).amin(-1)
+    before = mw_ops.launches
+    runs = [mw_ops.mw_update(hits, correct, alive, shift)
+            for _ in range(50)]
+    torch.cuda.synchronize()
+    assert mw_ops.launches == before + 50
+    rh, rw = mw_ops.mw_update(hits, correct, alive, shift, interpret=True)
+    for kh, kw in runs:
+        assert torch.equal(kh, rh) and torch.equal(kw, rw)
 
 
 @pytest.mark.cuda
@@ -132,6 +200,50 @@ def test_flash_attention_kernel_matches_plain_version(card, shape, dtype,
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _cancelling_pairs(B, S, H, KV, hd, card, seed):
+    """q, k, v bf16 [B, S, ·, hd] whose keys come in pairs (2t, 2t + 1):
+    the partner's score is lower by a gap of 0.0025–0.0225 (after the
+    1/√hd scale) and its V row is the negative of the first's.  On an
+    odd row every visible key has its partner, so |O| is about the gap
+    times |v|, far below Σ|p·v|, while the softmax weights are not bf16
+    values: P rounded to bf16 errs there by about 2^−9 of Σ|p·v|."""
+    g = torch.Generator().manual_seed(seed)
+    T = S // 2
+    x = torch.rand((B, T, KV), generator=g) * 24
+    gap = (torch.rand((B, T, KV), generator=g) + 0.5) * 0.01 * hd ** 0.5
+    k = torch.zeros((B, S, KV, hd))
+    k[:, 0::2, :, 0] = x
+    k[:, 1::2, :, 0] = x
+    k[:, 1::2, :, 1] = -gap
+    q = torch.zeros((B, S, H, hd))
+    q[..., :2] = (torch.rand((B, 1, H, 1), generator=g) + 0.5)
+    u = torch.rand((B, T, KV, hd), generator=g) * 2 - 1
+    v = torch.stack([u, -u], dim=2).reshape(B, S, KV, hd)
+    return [t.to(torch.bfloat16).to(card) for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_flash_bf16_keeps_p_in_float32(card, hd):
+    """The wgmma route against the plain version (P in float32) within
+    1e-4 on rows where the V rows cancel, one tile plan per hd; every
+    row at the bf16 bar.  With P rounded to bf16 before P·V the odd
+    rows err by about 1e-3."""
+    B, S, H, KV = 2, 256, 4, 2
+    q, k, v = _cancelling_pairs(B, S, H, KV, hd, card, seed=hd)
+    got = flash_ops.flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    want = flash_ops.flash_attention(q, k, v, interpret=True).float()
+    odd = slice(1, None, 2)
+    # the rows cancel: |O| stays under 2^−6, where one bf16 step of the
+    # output is under 1e-4
+    assert float(want[:, odd].abs().max()) < 2 ** -6
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = float((got[:, odd] - want[:, odd]).abs().max())
+    assert err <= 1e-4, err
 
 
 @pytest.mark.cuda
