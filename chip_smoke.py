@@ -30,13 +30,22 @@ UTMALDG), and drives the port's paths through
   the ``dropout`` infrastructure fault at m = 2^14, held to the
   guarantee over the surviving shards;
 
+* the sharded engine over a 1-rank NCCL group (``serve --engine
+  sharded``) — the thresholds slice at full size, a histogram-mode tree
+  run at m = 2^14 and the dropout run, each equal on every protocol
+  output to the batched engine's run of the same argv, with the ledger
+  validated against the wire counters and the collectives equal to the
+  census; and the host loop on task 0 of the thresholds slice, equal to
+  the batched engine's task 0;
+
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
 port's CPU run on the three integer classes, on AxisStumps, on
 HistogramTrees in its three wire modes and on a 240-round thresholds
 run, the scenario reports of ``boundary``, ``byzantine`` and
-``dropout`` against the CPU's, and the card's LM logits against the
-CPU's on reduced deepseek-7b and qwen3-32b.  Prints the card, each
+``dropout`` against the CPU's, the sharded engine's (NCCL) against
+the CPU's (gloo) on every field and wire counter, and the card's LM
+logits against the CPU's on reduced deepseek-7b and qwen3-32b.  Prints the card, each
 phase's seconds, the kernels' numbers as one JSON line, and, last, one
 JSON object with ``"ok": true``.  Any failed check exits
 non-zero before that line; so does a host with no CUDA device.
@@ -58,6 +67,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -114,6 +124,12 @@ DROP_ARGS = with_flags(SCEN_ARGS, scenario="dropout", m=1 << 14)
 # past the old 126-round cap: B = 4 tasks of m = 2^22 (T = ⌈6·22⌉ = 132
 # rounds), the rest as the thresholds slice
 LARGE_ARGS = with_flags(SLICE_ARGS, batch=4, m=1 << 22)
+# the sharded engine over its 1-rank NCCL group: the thresholds slice at
+# full size; the tree slice in histogram mode with its depth (m) cut to
+# 2^14 for time (its step is the Gumbel draw), run on both engines; the
+# dropout run as it is
+SHARD = ["--engine", "sharded"]
+SHARD_TREE_ARGS = with_flags(TREE_ARGS, comm_mode="histogram", m=1 << 14)
 # stump cases, (B or None for the unbatched form, c, F, Q, kind): the
 # reference's (tests/test_kernels.py: sweep, block edges, all-negative
 # weights, duplicated thresholds, batched grid), then a ragged shape;
@@ -861,6 +877,151 @@ def phase_card_vs_cpu(batched, prng, tasks, weak) -> None:
             f"({res['cuda'].steps} steps, ok {int(res['cuda'].ok.sum())})")
 
 
+def assert_same_protocol(ref, got, name: str) -> None:
+    """Every task's protocol outputs equal between two results of one
+    argv: the result arrays the parity bar holds, each finished task's
+    dispute table with its D-table counts, and every ledger (the final
+    classifier is a function of these)."""
+    for f in ("hypotheses", "rounds", "ok", "attempts", "alive",
+              "disputed", "hist_stuck", "hist_rounds", "hist_alive",
+              "hist_p", "hist_players", "hist_players_h",
+              "hist_players_last"):
+        check(np.array_equal(getattr(ref, f), getattr(got, f)),
+              f"{name}: {f} differs between the engines")
+    for b in range(ref.batch):
+        check(ref.ledger(b) == got.ledger(b), f"{name} task {b}: ledgers "
+              f"differ: {ref.ledger(b)} != {got.ledger(b)}")
+        if ref.ok[b]:
+            rt, gt = ref.per_task(b), got.per_task(b)
+            check(all(map(np.array_equal,
+                          (rt.dispute_x, *rt.dispute_y),
+                          (gt.dispute_x, *gt.dispute_y))),
+                  f"{name} task {b}: dispute tables differ")
+
+
+def check_sharded(out, res, ledger, cls, name) -> None:
+    """The sharded run's own gates: the ledger validated on every
+    finished task, one NCCL rank, and the collectives it made equal to
+    the census for every step."""
+    check(out["ledger_vs_payload"] == f"validated_{out['ok']}/"
+          f"{res.batch}", f"{name}: ledger_vs_payload "
+          f"{out['ledger_vs_payload']}")
+    check((out["backend"], out["mesh_devices"]) == ("nccl", 1),
+          f"{name}: backend {out['backend']}, {out['mesh_devices']} ranks")
+    census = ledger.collective_sites_per_round(cls)
+    want = {k: n * res.steps for k, n in census.items()}
+    check(out["collective_calls"] == want, f"{name}: collectives "
+          f"{out['collective_calls']} != census {census} x {res.steps} "
+          f"steps")
+    log(f"{name}: ledger {out['ledger_vs_payload']}, backend "
+        f"{out['backend']}, mesh_devices {out['mesh_devices']}, "
+        f"collective_bytes_max {out['collective_bytes_max']}, "
+        f"collectives {out['collective_calls']} = census {census} x "
+        f"{res.steps} steps")
+
+
+def phase_sharded(serve, ledger, argv, name, ref) -> tuple[dict, object,
+                                                           dict]:
+    """One path through the sharded engine (:func:`drive`), held to the
+    batched engine's result ``ref`` of the same argv on every protocol
+    output.  Returns (serve JSON, result, launches)."""
+    args, out, res, _, _, launches = drive(serve, argv + SHARD, name)
+    cls = serve.make_class(args)
+    check_sharded(out, res, ledger, cls, name)
+    check(res.steps == ref.steps, f"{name}: {res.steps} steps, the "
+          f"batched engine {ref.steps}")
+    assert_same_protocol(ref, res, name)
+    log(f"{name}: every protocol output equals the batched engine's "
+        f"({out['ok']} of {args.batch} ok); ms/step sharded "
+        f"{out['wall_s'] * 1e3 / max(res.steps, 1):.2f}")
+    return out, res, launches
+
+
+def phase_host_loop(serve, classify, prng, argv, ref) -> dict:
+    """``classify.run_accurately_classify`` on the card for task 0 of
+    the batched run ``ref`` of ``argv``: its protocol outputs equal
+    ``ref.per_task(0)``.  Returns the kernels' launches."""
+    args = serve.build_parser().parse_args(argv)
+    cls = serve.make_class(args)
+    cfg = serve.make_config(args, cls)
+    key = prng.split(prng.key(args.seed, device="cuda"), args.batch)[0]
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = classify.run_accurately_classify(ref.x[0], ref.y[0], key, cfg,
+                                           cls, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    want = ref.per_task(0)
+    check((got.attempts, got.rounds, got.stuck_history)
+          == (want.attempts, want.rounds, want.stuck_history),
+          f"host loop: attempts/rounds/stuck {got.attempts} {got.rounds} "
+          f"{got.stuck_history} != {want.attempts} {want.rounds} "
+          f"{want.stuck_history}")
+    check(np.array_equal(got.hypotheses[:got.rounds],
+                         want.hypotheses[:want.rounds]),
+          "host loop: hypotheses differ")
+    check(got.ledger == want.ledger,
+          f"host loop: ledger {got.ledger} != {want.ledger}")
+    order = np.argsort(got.dispute_x, kind="stable")
+    check(all(np.array_equal(g[order], w) for g, w in zip(
+        (got.dispute_x, *got.dispute_y), (want.dispute_x, *want.dispute_y))),
+        "host loop: dispute tables differ")
+    rounds = got.ledger.rounds
+    check(launches["mw_update"] == rounds,
+          f"host loop: {launches['mw_update']} mw_update launches for "
+          f"{rounds} rounds")
+    log(f"host loop: task 0 of m = {args.m} equal to the batched engine's "
+        f"({got.attempts} attempts, {rounds} rounds, stuck "
+        f"{got.stuck_history}); {secs:.3f} s, {secs / got.attempts:.3f} s "
+        f"per attempt, {secs * 1e3 / rounds:.2f} ms per round; launches "
+        f"{launches}")
+    return launches
+
+
+def phase_sharded_card_vs_cpu(sharded, prng, tasks, weak) -> None:
+    """The sharded engine on the card (one NCCL rank) and on the CPU
+    (one gloo rank), equal on every protocol field and wire counter:
+    thresholds, thresholds without a center, a voting-mode tree."""
+    from repro_torch.core.types import BoostConfig
+
+    thr = weak.make_class("thresholds", n=4096)
+    tree = weak.make_class("tree", num_features=4, tree_depth=2,
+                           tree_bins=8, tree_comm_mode="voting")
+    runs = [("thresholds", thr, False, BoostConfig(
+        k=4, coreset_size=100, domain_size=4096, opt_budget=16)),
+        ("thresholds/no center", thr, True, BoostConfig(
+            k=4, coreset_size=100, domain_size=4096, opt_budget=16)),
+        ("tree/voting", tree, False, BoostConfig(
+            k=4, coreset_size=100, domain_size=4096, opt_budget=16,
+            deterministic_coreset=False))]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        with sharded.make_players_group(4, dev) as g:
+            for name, cls, no_center, cfg in runs:
+                x, y, _ = tasks.make_batch(cls, 2, 512, 4, 3, seed0=7)
+                res[name, dev] = sharded.run_accurately_classify_sharded(
+                    x, y, prng.split(prng.key(5, device=dev), 2), cfg, cls,
+                    group=g, no_center=no_center)
+    for name, *_ in runs:
+        card, cpu = res[name, "cuda"], res[name, "cpu"]
+        check((card.backend, cpu.backend) == ("nccl", "gloo"),
+              f"sharded card vs cpu, {name}: {card.backend}, {cpu.backend}")
+        assert_same_protocol(cpu, card, f"sharded card vs cpu, {name}")
+        for f in ("hist_wire_core", "hist_wire_ws", "hist_wire_hist",
+                  "hist_wire_votes", "wire_bytes", "wire_q_points",
+                  "wire_q_counts"):
+            check(np.array_equal(getattr(card, f), getattr(cpu, f)),
+                  f"sharded card vs cpu, {name}: {f} differs")
+        check(card.collective_calls == cpu.collective_calls,
+              f"sharded card vs cpu, {name}: collectives differ")
+        log(f"sharded card vs cpu, {name}: every field equal on 2 tasks "
+            f"({card.steps} steps, ok {int(card.ok.sum())}, collectives "
+            f"{card.collective_calls})")
+
+
 def flash_inputs(B, S, H, KV, hd, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1173,7 +1334,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch import configs, models
-    from repro_torch.core import batched, ledger, prng, tasks, weak
+    from repro_torch.core import (batched, classify, ledger, prng,
+                                  sharded_batched, tasks, weak)
     from repro_torch.models import layers
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -1216,8 +1378,9 @@ def main() -> int:
                "flash_attention": phase("flash attention", phase_flash,
                                         flash_ops, flash_kernel, _build)}
     # 4. the integer-track path at full size
-    _, _, int_launches = phase("thresholds slice", phase_slice, serve,
-                               ledger, SLICE_ARGS, "thresholds slice")
+    _, int_res, int_launches = phase("thresholds slice", phase_slice,
+                                     serve, ledger, SLICE_ARGS,
+                                     "thresholds slice")
     check(int_launches["histogram"] == 0,
           "the integer track launched the histogram kernel")
     phase("thresholds profile", phase_profile, batched, serve, prng, tasks,
@@ -1257,21 +1420,63 @@ def main() -> int:
                                 SCEN_ARGS, "scenario slice")
     phase("scenario profile", phase_profile, batched, serve, prng, tasks,
           SCEN_ARGS, "scenario (stumps)", 3)
-    _, _, drop_launches = phase("dropout run", phase_scenario, serve,
-                                DROP_ARGS, "dropout run")
-    # 8. card against CPU
+    drop_out, drop_res, drop_launches = phase(
+        "dropout run", phase_scenario, serve, DROP_ARGS, "dropout run")
+    # 8. the sharded engine over its 1-rank NCCL group, each path held
+    # to the batched engine's run of the same argv; the host loop
+    shard_out, _, shard_launches = phase(
+        "sharded thresholds slice", phase_sharded, serve, ledger,
+        SLICE_ARGS, "sharded thresholds slice", int_res)
+    check(shard_out["ok"] == 16, f"sharded thresholds slice: ok "
+          f"{shard_out['ok']} of 16")
+    _, tree14_res, tree14_launches = phase(
+        "tree run, histogram mode", phase_slice, serve, ledger,
+        SHARD_TREE_ARGS, "tree run (histogram mode, batched)")
+    hist_ops.route_launches = dict.fromkeys(hist_ops.route_launches, 0)
+    _, stree_res, stree_launches = phase(
+        "sharded tree run, histogram mode", phase_sharded, serve, ledger,
+        SHARD_TREE_ARGS, "sharded tree run", tree14_res)
+    stree_routes = dict(hist_ops.route_launches)
+    check(stree_launches["histogram"] == depth * stree_res.steps
+          and stree_launches == tree14_launches,
+          f"sharded tree run: launches {stree_launches}, batched "
+          f"{tree14_launches}, steps {stree_res.steps}")
+    log(f"sharded tree run: histogram routes {stree_routes}")
+    entries["histogram"]["paths"]["sharded_tree"] = {
+        "route_launches": stree_routes}
+    sdrop_out, sdrop_res, sdrop_launches = phase(
+        "sharded dropout run", phase_scenario, serve, DROP_ARGS + SHARD,
+        "sharded dropout run")
+    check_sharded(sdrop_out, sdrop_res, ledger,
+                  serve.make_class(serve.build_parser().parse_args(
+                      DROP_ARGS)), "sharded dropout run")
+    assert_same_protocol(drop_res, sdrop_res, "sharded dropout run")
+    for key in ("survivors", "guarantee_ok_survivors", "bits_max"):
+        check(sdrop_out[key] == drop_out[key], f"sharded dropout run: "
+              f"{key} {sdrop_out[key]} != batched {drop_out[key]}")
+    log(f"sharded dropout run: equal to the batched run, "
+        f"guarantee_ok_survivors {sdrop_out['guarantee_ok_survivors']} of "
+        f"{sdrop_out['ok']}")
+    host_launches = phase("host loop", phase_host_loop, serve, classify,
+                          prng, SLICE_ARGS, int_res)
+    # 9. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
+    phase("sharded card vs cpu", phase_sharded_card_vs_cpu,
+          sharded_batched, prng, tasks, weak)
     phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
           flash_ops)
-    # 9. results: each kernel's top-level launches are its own main
+    # 10. results: each kernel's top-level launches are its own main
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``
     runs = {"thresholds": int_launches, "large_m": large_launches,
             "tree": launches,
             "scenario": scen_launches, "dropout": drop_launches,
-            "lm": lm_launches}
+            "lm": lm_launches, "sharded_thresholds": shard_launches,
+            "tree_histogram_m14": tree14_launches,
+            "sharded_tree": stree_launches,
+            "sharded_dropout": sdrop_launches, "host_loop": host_launches}
     for name, entry in entries.items():
         entry["launches"] = runs[entry["path"]][name]
         for path, counts in runs.items():

@@ -8,8 +8,10 @@ tensors — the uint32 key words in int64 — plus ``wsum`` and its
 ``wsum_shift``, recomputed from ``hits`` and ``alive`` in the mw_update
 kernel's summation order, shifted by each row's least alive hit count.
 A JAX run stopped after n rounds can so be finished by the port, and
-the other way round.  The data ``x``/``y`` stays plain numpy on both
-sides.
+the other way round.  The sharded engines' state dicts carry the same
+fields plus their int32 wire counters (:func:`from_jax_sharded`,
+:func:`to_jax_sharded`).  The data ``x``/``y`` stays plain numpy on
+both sides.
 
 LM parameters: :func:`lm_params_from_jax` loads the reference's params
 pytree (numpy leaves, ``jax.device_get(params)``) into the port's
@@ -21,10 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import batched
-from repro_torch.core.approximation import least_alive_hits
+from repro_torch.core import batched, sharded_batched
+from repro_torch.core.weights import wsums_from_hits
 from repro_torch.device import resolve_device
-from repro_torch.kernels.mw_update import ops as mw_ops
 
 
 def from_jax(leaves: dict, device=None) -> batched.StepState:
@@ -43,15 +44,9 @@ def from_jax(leaves: dict, device=None) -> batched.StepState:
         if f in batched.KEY_FIELDS:
             v = v.astype(np.int64)
         fields[f] = torch.as_tensor(v, device=dev)
-    hits, alive = fields["hits"], fields["alive"]
-    B, k, mloc = hits.shape
-    shift = least_alive_hits(hits, alive)
-    _, wsum = mw_ops.mw_update(hits.reshape(B * k, mloc),
-                               torch.zeros_like(alive).reshape(B * k, mloc),
-                               alive.reshape(B * k, mloc),
-                               shift.reshape(B * k), interpret=True)
-    return batched.StepState(**fields, wsum=wsum.reshape(B, k),
-                             wsum_shift=shift)
+    wsum, shift = wsums_from_hits(fields["hits"], fields["alive"],
+                                  interpret=True)
+    return batched.StepState(**fields, wsum=wsum, wsum_shift=shift)
 
 
 def to_jax(state: batched.StepState) -> dict:
@@ -63,6 +58,32 @@ def to_jax(state: batched.StepState) -> dict:
             continue
         v = v.cpu().numpy()
         out[f] = v.astype(np.uint32) if f in batched.KEY_FIELDS else v
+    return out
+
+
+def from_jax_sharded(leaves: dict, device=None) -> dict:
+    """Port sharded state (a dict of global tensors) from the numpy
+    leaves of a ``repro.core.sharded_batched`` state dict."""
+    for name in sharded_batched.WIRE_FIELDS:
+        if np.asarray(leaves[name]).dtype != np.int32:
+            raise ValueError(f"state leaf {name!r} has dtype "
+                             f"{np.asarray(leaves[name]).dtype}, the engine "
+                             f"expects int32: refusing a silent cast")
+    state = from_jax(leaves, device=device)._asdict()
+    dev = state["hits"].device
+    for name in sharded_batched.WIRE_FIELDS:
+        state[name] = torch.as_tensor(np.array(leaves[name]), device=dev)
+    return state
+
+
+def to_jax_sharded(state: dict) -> dict:
+    """The reference's sharded state leaves (numpy) from port sharded
+    state."""
+    proto = batched.StepState(**{f: state[f]
+                                 for f in batched.StepState._fields})
+    out = to_jax(proto)
+    for name in sharded_batched.WIRE_FIELDS:
+        out[name] = state[name].cpu().numpy()
     return out
 
 

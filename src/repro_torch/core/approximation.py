@@ -23,8 +23,6 @@ from repro_torch.core import fp32, prng
 from repro_torch.core import weights as W
 from repro_torch.core.pinned import pinned_argmax
 
-_I32_MAX = torch.iinfo(torch.int32).max
-
 
 def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
                      alive: torch.Tensor, c: int,
@@ -36,7 +34,7 @@ def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
     ``[..., c]`` local indices.  ``order``/``y_sorted``/
     ``alive_sorted`` hoist the loop-invariant sort and gathers;
     ``hmin`` ([...]) passes in the least alive hit count of each row
-    when the caller already has it (:func:`least_alive_hits`).
+    when the caller already has it (``weights.least_alive_hits``).
 
     Floats follow the reference's rounding (core/fp32.py): the weights
     are XLA's exp2(−shift) values and the prefix sums its scan order,
@@ -50,7 +48,7 @@ def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
         else alive_sorted
     hs = torch.gather(hits, -1, order)
     if hmin is None:
-        hmin = least_alive_hits(hits, alive)
+        hmin = W.least_alive_hits(hits, alive)
     hmin = hmin[..., None]
     # quantile levels are scale-free: weights relative to the lightest
     # hit count, clipped so an all-dead row stays finite
@@ -75,12 +73,6 @@ def quantile_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
     pos_sel = torch.arange(c, device=x.device) < c_pos
     idx_sorted = torch.where(pos_sel, idx2[..., 0, :], idx2[..., 1, :])
     return torch.gather(order, -1, idx_sorted)
-
-
-def least_alive_hits(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """min over alive examples of hits along the last axis (int32 max
-    for an all-dead row) — the max shift of the weights in log2 space."""
-    return torch.where(alive, hits, _I32_MAX).amin(dim=-1)
 
 
 def sampled_coreset(keys: torch.Tensor, hits: torch.Tensor,
@@ -135,3 +127,29 @@ def select_coreset(x: torch.Tensor, y: torch.Tensor, hits: torch.Tensor,
     return quantile_coreset(x, y, hits, alive, c, order=order,
                             y_sorted=y_sorted, alive_sorted=alive_sorted,
                             hmin=hmin)
+
+
+def approximation_error(coreset_idx: torch.Tensor, x: torch.Tensor,
+                        y: torch.Tensor, hits: torch.Tensor,
+                        alive: torch.Tensor, predict_fn,
+                        hyp_params: torch.Tensor) -> torch.Tensor:
+    """sup_h |L_{S'}(h) − L_p(h)| over the hypotheses ``hyp_params``
+    [C, P]: how far the coreset ``coreset_idx`` [c] of one player's
+    shard (x [m] or [m, F], y, hits, alive [m]) is from an
+    ε-approximation of p_t (Lemma 4.2's property; a diagnostic).
+    ``predict_fn(params [C, P], pts [C, n(, F)]) → [C, n]`` pairs each
+    hypothesis with its own copy of the points (the port's ``predict``).
+    Sums follow XLA:CPU's order (core/fp32.py)."""
+    C = hyp_params.shape[0]
+    p = fp32.exp2(W.normalized_log_probs(
+        hits, alive, W.log_weight_sum(hits, alive)))
+
+    def each(v):
+        return v[None].expand((C,) + tuple(v.shape))
+
+    wrong = predict_fn(hyp_params, each(x)) != y
+    err_full = fp32.sum_(torch.where(wrong, p, 0.0))
+    cx, cy = x[coreset_idx], y[coreset_idx]
+    wrong_core = (predict_fn(hyp_params, each(cx)) != cy).float()
+    err_core = fp32.sum_(wrong_core) / float(coreset_idx.shape[0])
+    return (err_full - err_core).abs().amax()

@@ -42,8 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import (boost_attempt, classify, fp32, prng,
-                              streaming, weak)
+from repro_torch.core import boost_attempt, classify, fp32, prng, weak
 from repro_torch.core import ledger as L
 from repro_torch.core import weights as W
 from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
@@ -217,11 +216,28 @@ def _active(s: StepState, a_max: int) -> torch.Tensor:
     return ~s.done & (s.attempt < a_max)
 
 
+class StepInfo(NamedTuple):
+    """What one step did, per task [B]: the sharded engine's wire
+    counters follow from it."""
+
+    active: torch.Tensor     # bool  the lane moved
+    start: torch.Tensor      # bool  an attempt started
+    stuck: torch.Tensor      # bool  the round was stuck
+    ended: torch.Tensor      # bool  the attempt ended
+    k_alive: torch.Tensor    # int32 players alive this round
+    p_count: torch.Tensor    # int32 distinct points quarantined
+
+
 def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
-              s: StepState) -> StepState:
-    """ONE wire round of every task (the reference's vmapped step)."""
+              s: StepState, wire: boost_attempt.Wire | None = None,
+              no_center: bool = False) -> tuple[StepState, StepInfo]:
+    """ONE wire round of every task (the reference's vmapped step) on
+    this process's players: x and the player-sharded state fields hold
+    the wire's local players, the rest every player (``wire`` default:
+    all of them)."""
+    wire = boost_attempt.Wire() if wire is None else wire
     a_max = cfg.opt_budget + 1
-    B, k = x.shape[:2]
+    B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     active = _active(s, a_max)
     pa = sched[rows, s.step.clamp(max=sched.shape[1] - 1).long()]   # [B, k]
@@ -230,7 +246,8 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
     nk_sub = prng.split(s.key_data, 2)
     key_data = torch.where(start[:, None], nk_sub[:, 0], s.key_data)
     akey_data = torch.where(start[:, None], nk_sub[:, 1], s.akey_data)
-    m_alive = (s.alive & pa[:, :, None]).sum(dim=(1, 2), dtype=torch.int32)
+    m_alive = wire.psum((s.alive & wire.local(pa)[:, :, None]).sum(
+        dim=(1, 2), dtype=torch.int32))
     a = s.attempt
     a_idx = a.clamp(max=a_max - 1).long()
     bound = torch.where(start, num_rounds_dynamic(cfg, m_alive), s.bound)
@@ -249,7 +266,7 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
         core_y=s.core_y, min_loss=s.min_loss, key=akey_data)
     out = boost_attempt._round_body(
         cfg, cls, x, y, s.alive, x_orders, y_sorted, alive_sorted, carry,
-        player_alive=pa, active=active)
+        player_alive=pa, active=active, wire=wire, no_center=no_center)
     stuck = out.stuck
     success = ~stuck & (out.t >= bound)
     ended = stuck | success
@@ -291,7 +308,9 @@ def _one_step(cfg: BoostConfig, cls, x, y, x_orders, y_sorted, sched,
     # finished lanes freeze
     return StepState(*(
         torch.where(active.reshape((B,) + (1,) * (new.ndim - 1)), new, old)
-        for new, old in zip(nxt, s)))
+        for new, old in zip(nxt, s))), StepInfo(
+            active=active, start=start, stuck=stuck, ended=ended,
+            k_alive=k_alive, p_count=p_count)
 
 
 def _run_steps(x, y, sched, state: StepState, n: int | None,
@@ -299,13 +318,11 @@ def _run_steps(x, y, sched, state: StepState, n: int | None,
     """Advance every active task by up to ``n`` rounds; returns the
     state and the number of steps run."""
     a_max = cfg.opt_budget + 1
-    x_orders = y_sorted = None
-    if boost_attempt.is_quantile_track(cfg, x):
-        x_orders = streaming.sort_order(x, cfg.chunk_size, cfg.domain_size)
-        y_sorted = torch.gather(y, -1, x_orders)
+    x_orders, y_sorted = boost_attempt.sorted_views(cfg, x, y)
     steps = 0
     while (n is None or steps < n) and bool(_active(state, a_max).any()):
-        state = _one_step(cfg, cls, x, y, x_orders, y_sorted, sched, state)
+        state, _ = _one_step(cfg, cls, x, y, x_orders, y_sorted, sched,
+                             state)
         steps += 1
     return state, steps
 

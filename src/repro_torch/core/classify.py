@@ -1,12 +1,14 @@
-"""AccuratelyClassify (Figure 2): quarantine primitives and the final
-classifier (counterpart of repro.core.classify).
+"""AccuratelyClassify (Figure 2): the host loop, quarantine primitives
+and the final classifier (counterpart of repro.core.classify).
 
 A stuck attempt quarantines every copy of every point of its coreset,
 on every player (full-point quarantine, docs/architecture.md); the
 final classifier votes each disputed point by its full label counts in
 S and defers to the boosted ensemble elsewhere, so E_S(f) ≤ OPT.  The
-host loop ``run_accurately_classify`` is the JAX package's spec; the
-port's tests hold this package to it through the JAX batched engine.
+host loop :func:`run_accurately_classify` (and :func:`learn`, its
+one-call form) runs one BoostAttempt at a time on the device and
+quarantines on the host with ``np.unique``/``np.isin``, as the
+reference's spec does; the engines are held to it.
 
 Points are int32 domain values or float32 feature rows [.., F]; two
 rows are equal when every feature is (``==``: a row holding a NaN
@@ -24,7 +26,10 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import weak
+from repro_torch.core import boost_attempt, prng, weak
+from repro_torch.core import ledger as L
+from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
+from repro_torch.device import resolve_device
 
 
 def _row_ids(pts: torch.Tensor, valid: torch.Tensor, x=None):
@@ -144,6 +149,15 @@ def dispute_table(x: np.ndarray, y: np.ndarray, alive0: np.ndarray,
     return pts[keep], pos[keep], neg[keep]
 
 
+def _kill_points(x: np.ndarray, alive: np.ndarray, pts: np.ndarray):
+    """Remove every copy of every disputed point, on every player
+    (feature rows match under ``==``, as :func:`match_points`)."""
+    if x.ndim == 3:
+        dead = match_points(torch.from_numpy(x), torch.from_numpy(pts))
+        return alive & ~dead.numpy()
+    return alive & ~np.isin(x, pts)
+
+
 def _point_counts(x, y, alive, pts):
     """Label counts of each (sorted, unique) point over alive copies."""
     if pts.shape[0] == 0:
@@ -231,3 +245,80 @@ def make_classifier(cls, result) -> ResilientClassifier:
         cls=cls, hypotheses=np.asarray(result.hypotheses),
         rounds=int(result.rounds), dispute_x=np.asarray(result.dispute_x),
         dispute_pos=np.asarray(pos), dispute_neg=np.asarray(neg))
+
+
+def run_accurately_classify(x, y, key, cfg: BoostConfig, cls, alive=None,
+                            device=None) -> ClassifyResult:
+    """The host-driven outer loop (≤ opt_budget + 1 BoostAttempts) of
+    one task: x [k, mloc] int32 shards or [k, mloc, F] float32 feature
+    rows, y [k, mloc] int8, ``key`` [2] words, ``alive`` an optional
+    initial [k, mloc] mask.  Each attempt runs on ``device`` (default
+    ``cuda``); quarantine and the ledger run on the host.  Raises when
+    OPT exceeds the budget, as the reference does."""
+    dev = resolve_device(device)
+    x_np, y_np = _host(x), _host(y)
+    k, mloc = x_np.shape[0], x_np.shape[1]
+    alive_np = (np.ones((k, mloc), bool) if alive is None
+                else _host(alive).astype(bool))
+    xt, yt = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    key = prng.wrap_key_data(key).to(dev)
+    led = Ledger()
+    dis_pts, dis_pos, dis_neg = [], [], []
+    stuck_history = []
+    result = None
+    m_bits_m = max(int(np.ceil(np.log2(max(k * mloc, 2)))), 1)
+    n = L.domain_size(cls)
+    for _ in range(cfg.opt_budget + 1):
+        halves = prng.split(key, 2)
+        key, sub = halves[0], halves[1]
+        m_alive = int(alive_np.sum())
+        res = boost_attempt.run_boost_attempt(
+            xt, yt, torch.from_numpy(alive_np).to(dev), sub, cfg, cls,
+            device=dev)
+        led = led + L.boost_attempt_ledger(cfg, cls, max(m_alive, 2),
+                                           res.rounds, res.stuck)
+        stuck_history.append(res.stuck)
+        if not res.stuck:
+            result = res
+            break
+        # ---- full-point quarantine of the non-realizable coreset
+        cx = res.coreset_x.reshape((-1,) + res.coreset_x.shape[2:])
+        pts = np.unique(cx, axis=0) if cx.ndim == 2 else np.unique(cx)
+        pos, neg = _point_counts(x_np, y_np, alive_np, pts)
+        # points with no alive copy carry no label evidence: they stay
+        # out of the D-table, but the broadcast charged them all
+        keep = (pos + neg) > 0
+        dis_pts.append(pts[keep])
+        dis_pos.append(pos[keep])
+        dis_neg.append(neg[keep])
+        alive_np = _kill_points(x_np, alive_np, pts)
+        P = int(pts.shape[0])
+        led.bits_control += cfg.k * P * L.point_bits(n)       # broadcast
+        led.bits_dispute += cfg.k * P * 2 * m_bits_m          # counts up
+    if result is None:
+        raise RuntimeError(
+            f"AccuratelyClassify exceeded opt_budget={cfg.opt_budget}; "
+            "OPT is larger than the promise this run was configured for.")
+    if dis_pts:
+        dpts, dpos, dneg = (np.concatenate(v)
+                            for v in (dis_pts, dis_pos, dis_neg))
+    else:
+        dpts = np.zeros((0,) + x_np.shape[2:], x_np.dtype)
+        dpos = dneg = np.zeros((0,), np.int64)
+    return ClassifyResult(
+        hypotheses=result.hypotheses, rounds=result.rounds,
+        dispute_x=dpts, dispute_y=(dpos, dneg),
+        dispute_count=int(dpts.shape[0]),
+        attempts=len(stuck_history), stuck_history=stuck_history,
+        ledger=led)
+
+
+def learn(x, y, key, cfg: BoostConfig, cls, device=None):
+    """One-call API: (ResilientClassifier, ClassifyResult) of one task
+    (see :func:`run_accurately_classify`)."""
+    result = run_accurately_classify(x, y, key, cfg, cls, device=device)
+    return make_classifier(cls, result), result
+
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)

@@ -7,8 +7,9 @@ k weight sums in fixed point (2(b)), one hypothesis broadcast to k
 players (2(d)) and the control bits of a stuck or halting attempt
 (2(e)).  The histogram trees' distributed wire modes replace the
 per-round coresets with per-player histograms or votes (examples cross
-the wire only on a stuck round).  ``collective_sites_per_round`` comes
-with the sharded engine (ROADMAP queue 1, item 9).
+the wire only on a stuck round).  ``collective_sites_per_round`` is
+the census of the sharded engine's collectives, which its process-group
+wire counts at every call (core/sharded_batched.py).
 """
 
 from __future__ import annotations
@@ -61,6 +62,30 @@ def vote_entries_per_player(cls) -> int:
     if tree_comm_mode(cls) == "voting":
         return cls.nodes * cls.vote_topk
     return 0
+
+
+def collective_sites_per_round(cls, *, no_center: bool = False) -> dict:
+    """The collective calls ONE wire round of the sharded engine makes,
+    by kind, each a charged (or control) payload of this module:
+
+    * ``all_gather`` — coreset x, coreset y and the weight sums (3,
+      charged as ``bits_coresets`` / ``bits_weight_sums``), plus the
+      per-level merges of a distributed ``comm_mode`` (histogram: hw +
+      hwy = 2·depth; voting: proposals + alive mask + elected hw/hwy =
+      4·depth);
+    * ``psum`` — the alive-example count (control traffic), plus the
+      §2.2 no-center model's hypothesis/loss broadcast pair.
+    """
+    mode = tree_comm_mode(cls)
+    all_gather = 3
+    if mode == "histogram":
+        all_gather += 2 * cls.depth
+    elif mode == "voting":
+        all_gather += 4 * cls.depth
+    psum = 1
+    if no_center and mode == "coreset":
+        psum += 2
+    return {"all_gather": all_gather, "psum": psum}
 
 
 def histogram_cell_bits(m: int, num_rounds: int) -> int:
@@ -132,3 +157,8 @@ def theorem_41_bound(cfg: BoostConfig, cls, m: int, opt: int,
         cfg.coreset_size * (logn + 1) / max(d, 1) * d
         + cls.hypothesis_bits() + logm + mode_payload)
     return constant * max(opt + 1, 1) * per_attempt
+
+
+def naive_baseline_bits(m: int, n: int) -> int:
+    """Send-all-data baseline: every example to the center."""
+    return m * example_bits(n)

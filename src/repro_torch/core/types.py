@@ -43,6 +43,26 @@ class BoostConfig:
 
 
 @dataclasses.dataclass
+class BoostAttemptResult:
+    """Output of one BoostAttempt (Figure 1), host arrays.
+
+    ``stuck == False``: ``hypotheses[:rounds]`` is the boosted ensemble
+    with E_S(f) = 0 on the alive sample (Lemma 4.2).  ``stuck == True``:
+    the final coreset (``coreset_index`` per player, an index past the
+    shard where a dead shard's sampled coreset named none) is
+    non-realizable (Observation 4.3) and goes to quarantine.
+    """
+
+    stuck: bool
+    rounds: int                  # hypotheses produced
+    hypotheses: Any              # [T, P] stacked hypothesis params
+    coreset_index: Any           # [k, c] int32 local indices
+    coreset_x: Any               # [k, c(, F)] points of the final coreset
+    coreset_y: Any               # [k, c] labels of the final coreset
+    min_mixture_loss: Any        # L_{D_t}(ĥ) of the last round
+
+
+@dataclasses.dataclass
 class ClassifyResult:
     """Output of AccuratelyClassify (Figure 2), host arrays."""
 

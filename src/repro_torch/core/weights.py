@@ -13,6 +13,9 @@ import math
 import torch
 
 from repro_torch.core import fp32
+from repro_torch.kernels.mw_update import ops as mw_ops
+
+_I32_MAX = torch.iinfo(torch.int32).max
 
 
 def init_hits(shape, device=None) -> torch.Tensor:
@@ -38,6 +41,27 @@ def log_weight_sum(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     s = fp32.sum_(fp32.exp2(logw - mx_safe))[..., None]
     out = mx_safe + fp32.log2(torch.clamp(s, min=1e-30))
     return torch.where(finite, out, -math.inf)[..., 0]
+
+
+def least_alive_hits(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """min over alive examples of hits along the last axis (int32 max
+    for an all-dead row) — the max shift of the weights in log2 space."""
+    return torch.where(alive, hits, _I32_MAX).amin(dim=-1)
+
+
+def wsums_from_hits(hits: torch.Tensor, alive: torch.Tensor, *,
+                    interpret: bool | None = None):
+    """The carried weight sum of [..., m] hits and its shift, as the
+    engine's ``mw_update`` would have returned them: (Σ_alive 2^(shift
+    − hits) float32 [...], shift int32 [...]) with shift each row's
+    least alive hit count, in the kernel's summation order."""
+    lead, m = hits.shape[:-1], hits.shape[-1]
+    shift = least_alive_hits(hits, alive)
+    _, wsum = mw_ops.mw_update(hits.reshape(-1, m),
+                               torch.zeros_like(alive).reshape(-1, m),
+                               alive.reshape(-1, m), shift.reshape(-1),
+                               interpret=interpret)
+    return wsum.reshape(lead), shift
 
 
 def log_wsums_from_sums(wsum: torch.Tensor, hmin: torch.Tensor,

@@ -9,7 +9,11 @@
   in the reference) runs ``reduced(cfg)``; ``--no-smoke`` runs the
   configuration at full width and depth.
 * ``--workload classify`` — a batch of AccuratelyClassify tasks through
-  the port's batched engine.  ``--scenario`` picks an adversary
+  the port's batched engine or, with ``--engine sharded``, over a
+  ``torch.distributed`` players group (core/sharded_batched.py: the
+  world of a launcher that formed one, else one rank — NCCL on the
+  card, gloo on the CPU), whose ledger is then held to the payloads
+  its collectives moved.  ``--scenario`` picks an adversary
   (core/scenarios.py): a noise model (uniform, targeted_heavy,
   byzantine, boundary, drift), a planted tree concept (xor,
   checkerboard, bands; ``--cls tree``), or an infrastructure fault
@@ -34,13 +38,18 @@ Usage:
         --scenario boundary --noise 8 --batch 16 --m 65536 --features 8
     python -m repro_torch.launch.serve --workload classify --device cpu \\
         --cls stumps --scenario dropout --batch 4 --m 512
+    python -m repro_torch.launch.serve --workload classify --engine sharded \\
+        --batch 16 --m 1048576 --k 4 --noise 8 --domain 65536
 
 Each prints one JSON line with the reference's keys plus ``device`` and
 ``kernel_launches`` (the launches of each kernel the workload's path
 can reach, in the timed run and the reports after it; 0 on the CPU,
 where the plain versions run); ``lm`` adds ``flash``, ``classify``
 adds ``steps`` and, with ``--scenario``, ``reports_s`` (the seconds the
-reports took).  Prompt
+reports took); ``--engine sharded`` adds the reference's
+``mesh_devices``, ``ledger_vs_payload`` and ``collective_bytes_max``,
+and the port's ``backend`` (``nccl`` or ``gloo``) and
+``collective_calls`` (the run's collectives by kind).  Prompt
 tokens come from ``np.random.default_rng(seed)`` and classify keys
 from ``split(key(seed), B)``, as in the reference.
 Runs are timed once, after the kernel libraries are built, each timed
@@ -50,15 +59,19 @@ part ending in a device synchronise.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, models
-from repro_torch.core import batched, prng, scenarios, tasks, weak
+from repro_torch.core import (batched, prng, scenarios, sharded_batched,
+                              tasks, weak)
 from repro_torch.core.pinned import pinned_argmax
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
@@ -167,11 +180,9 @@ def run_classify(args):
     infrastructure adversary (``dropout``/``flaky``/``rejoin``: the
     tasks carry the usual ``--noise`` uniform flips and a player-alive
     schedule silences ``--infra-player``)."""
-    if args.engine != "batched":
-        raise NotImplementedError(
-            "--engine sharded comes with the mesh-sharded engine over "
-            "torch.distributed, ROADMAP queue 1, item 9")
-    dev = resolve_device(args.device)
+    # a launcher's NCCL world puts each rank on its own card
+    dev = (sharded_batched.rank_device(args.device)
+           if args.engine == "sharded" else resolve_device(args.device))
     cls = make_class(args)
     cfg = make_config(args, cls)
     B = args.batch
@@ -193,14 +204,23 @@ def run_classify(args):
     xt = torch.as_tensor(x, device=dev)
     yt = torch.as_tensor(y, device=dev)
     keys = prng.split(prng.key(args.seed, device=dev), B)
-    _sync(dev)
-    for _, ops in KERNELS.values():
-        ops.launches = 0
-    t0 = time.perf_counter()
-    res = batched.run_accurately_classify_batched(
-        xt, yt, keys, cfg, cls, player_sched=player_sched, device=dev)
-    _sync(dev)
-    wall = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        if args.engine == "sharded":
+            group = stack.enter_context(
+                sharded_batched.make_players_group(args.k, dev))
+            run = functools.partial(
+                sharded_batched.run_accurately_classify_sharded,
+                group=group)
+        else:
+            run = functools.partial(batched.run_accurately_classify_batched,
+                                    device=dev)
+        _sync(dev)
+        for _, ops in KERNELS.values():
+            ops.launches = 0
+        t0 = time.perf_counter()
+        res = run(xt, yt, keys, cfg, cls, player_sched=player_sched)
+        _sync(dev)
+        wall = time.perf_counter() - t0
     result = {
         "workload": "classify", "engine": args.engine, "batch": B,
         "m": args.m, "k": args.k, "class": args.cls,
@@ -234,6 +254,16 @@ def run_classify(args):
     if reports is not None:
         _sync(dev)
         result["reports_s"] = round(time.perf_counter() - t0, 4)
+    if args.engine == "sharded":
+        ok = [b for b in range(B) if res.ok[b]]
+        for b in ok:
+            res.validate_ledger(b)
+        result["mesh_devices"] = int(res.mesh_devices)
+        result["ledger_vs_payload"] = (f"validated_{len(ok)}/{B}"
+                                       if ok else "no_ok_lanes")
+        result["collective_bytes_max"] = int(res.wire_bytes.max())
+        result["backend"] = res.backend
+        result["collective_calls"] = res.collective_calls
     result["kernel_launches"] = _launches("classify")
     return result, res, ts, reports
 
@@ -334,7 +364,10 @@ def main():
         raise SystemExit(f"--workload {args.workload} is not ported yet: "
                          f"{_NOT_YET[args.workload]}")
     run = run_lm if args.workload == "lm" else run_classify
-    print(json.dumps(run(args)[0]))
+    out = run(args)[0]
+    # in a world its launcher formed (torchrun), rank 0 reports
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

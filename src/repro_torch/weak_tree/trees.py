@@ -187,21 +187,25 @@ class HistogramTrees:
         return self._pack(feats, qbins, sign), loss
 
     def erm_players(self, cx: torch.Tensor, cy: torch.Tensor,
-                    pw: torch.Tensor):
+                    pw: torch.Tensor, *, all_gather=None):
         """The distributed greedy grower of the ``histogram`` and
-        ``voting`` modes: cx [B, k, c, F], cy [B, k, c], pw [B, k] the
-        per-example weight of each player (0 for a dead player) →
-        (params [B, P], loss [B]).  The engine holds every player's
-        shard, so the reference's gather is the identity here; each
-        player's histograms come from one launch over (task, player),
-        and the merge sums the player axis in order."""
-        B, k, c = cy.shape
+        ``voting`` modes: cx [B, kp, c, F], cy [B, kp, c], pw [B, kp]
+        the per-example weight of each of this process's players (0 for
+        a dead player) → (params [B, P], loss [B]).  Each player's
+        histograms come from one launch over (task, player);
+        ``all_gather`` pools a [B, kp, …] per-player array to
+        [B, k, …] in player order (the identity when the caller holds
+        all k players, the batched and host forms; the sharded engine
+        passes its collective), and the merge sums the player axis in
+        order, so it does not depend on how the players are spread."""
+        B, kp, c = cy.shape
         F = self.num_features
         dev = cx.device
-        w = pw[..., None].expand(B, k, c)
+        ag = (lambda a: a) if all_gather is None else all_gather
+        w = pw[..., None].expand(B, kp, c)
         wy = w * cy.float()
-        b = H.bin_index(cx, self.bins)                       # [B, k, c, F]
-        route = torch.zeros((B, k, c), dtype=torch.int64, device=dev)
+        b = H.bin_index(cx, self.bins)                       # [B, kp, c, F]
+        route = torch.zeros((B, kp, c), dtype=torch.int64, device=dev)
         feats, qbins = [], []
         for level in range(self.depth):
             N = 1 << level
@@ -211,31 +215,35 @@ class HistogramTrees:
             hw, hwy = H.node_histograms(cx, wn.contiguous(),
                                         wyn.contiguous(), self.bins)
             if self.comm_mode == "voting":
-                _, err_f = H.best_splits_per_feature(hw, hwy)  # [B,k,N,F]
+                _, err_f = H.best_splits_per_feature(hw, hwy)  # [B,kp,N,F]
                 prop = torch.argsort(err_f, dim=-1,
                                      stable=True)[..., :self.vote_topk]
-                onefeat = ((prop[..., None] == torch.arange(F, device=dev))
-                           & (pw > 0)[:, :, None, None, None])
+                votes_all = ag(prop)                           # [B,k,N,topk]
+                alive_all = ag(pw > 0)                         # [B, k]
+                onefeat = ((votes_all[..., None]
+                            == torch.arange(F, device=dev))
+                           & alive_all[:, :, None, None, None])
                 votes = onefeat.sum(dim=(1, 3), dtype=torch.int64)  # [B,N,F]
                 rank = votes * F + torch.arange(F - 1, -1, -1, device=dev)
                 elect = torch.topk(rank, self.elected, dim=-1,
                                    sorted=True).indices          # [B, N, E]
                 gidx = elect[:, None, :, :, None].expand(
-                    B, k, N, self.elected, self.bins)
-                hw_m = fp32.sum_(torch.gather(hw, 3, gidx).movedim(1, -1))
-                hwy_m = fp32.sum_(torch.gather(hwy, 3, gidx).movedim(1, -1))
+                    B, kp, N, self.elected, self.bins)
+                hw_m = fp32.sum_(ag(torch.gather(hw, 3, gidx)).movedim(1, -1))
+                hwy_m = fp32.sum_(ag(torch.gather(hwy, 3, gidx))
+                                  .movedim(1, -1))
                 sel, q_n, _ = H.best_splits_ref(hw_m, hwy_m)
                 f_n = torch.gather(elect, -1, sel[..., None])[..., 0]
             else:                                             # histogram
-                hw_m = fp32.sum_(hw.movedim(1, -1))          # [B, N, F, Q]
-                hwy_m = fp32.sum_(hwy.movedim(1, -1))
+                hw_m = fp32.sum_(ag(hw).movedim(1, -1))      # [B, N, F, Q]
+                hwy_m = fp32.sum_(ag(hwy).movedim(1, -1))
                 f_n, q_n, _ = H.best_splits_ref(hw_m, hwy_m)
                 sel = f_n
             feats.append(f_n)
             qbins.append(q_n)
-            flat = route.reshape(B, k * c)
-            f_pt = torch.gather(f_n, -1, flat).reshape(B, k, c)
-            q_pt = torch.gather(q_n, -1, flat).reshape(B, k, c)
+            flat = route.reshape(B, kp * c)
+            f_pt = torch.gather(f_n, -1, flat).reshape(B, kp, c)
+            q_pt = torch.gather(q_n, -1, flat).reshape(B, kp, c)
             xv = torch.gather(b, -1, f_pt[..., None])[..., 0]
             route = route * 2 + (xv >= q_pt).long()
         # leaves from the last level's merged histograms: the chosen

@@ -27,9 +27,8 @@ from repro.core import weak as j_weak
 from repro.core import weights as j_weights
 from repro.core.types import BoostConfig as JConfig
 from repro_torch.core import approximation, batched, classify, fp32
-from repro_torch.core import ledger, streaming, tasks, weak, weights
+from repro_torch.core import ledger, prng, streaming, tasks, weak, weights
 from repro_torch.core.types import BoostConfig
-from repro_torch.launch import serve
 from repro_torch.weak_tree import HistogramTrees
 
 CLASSES = ("thresholds", "intervals", "singletons")
@@ -207,7 +206,7 @@ def test_weights_within_stated_tolerance():
     assert np.isneginf(pl[0, 1]) and np.isneginf(jl[0, 1])
     # the engine's form, from the kernel's unshifted sum
     wsum = torch.where(at, torch.exp2(-ht.double()), 0.0).sum(-1).float()
-    hmin = approximation.least_alive_hits(ht, at)
+    hmin = weights.least_alive_hits(ht, at)
     np.testing.assert_allclose(
         weights.log_wsums_from_sums(wsum, hmin).numpy(), jl, rtol=1e-5)
     np.testing.assert_allclose(
@@ -224,9 +223,9 @@ def test_slice_boundaries_raise_with_their_queue_item():
         streaming.sort_order(x, chunk_size=4)
     with pytest.raises(NotImplementedError, match="item 10"):
         HistogramTrees(num_features=4, chunk_size=4)
-    # scenarios are ported (item 11); the sharded engine is not
-    args = serve.build_parser().parse_args(
-        ["--workload", "classify", "--device", "cpu", "--engine", "sharded",
-         "--scenario", "byzantine"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.run_classify(args)
+    # the engines reach the same boundary through BoostConfig.chunk_size
+    with pytest.raises(NotImplementedError, match="item 10"):
+        batched.run_accurately_classify_batched(
+            x, torch.ones((1, 1, 8), dtype=torch.int8), prng.key(0),
+            BoostConfig(k=1, coreset_size=4, chunk_size=4),
+            weak.Thresholds(n=64), device="cpu")

@@ -22,7 +22,7 @@ from repro.core import weights as j_weights
 from repro.kernels.mw_update import ops as jax_ops
 from repro.kernels.mw_update import ref as jax_ref
 from repro_torch.core import weights
-from repro_torch.core.approximation import least_alive_hits
+from repro_torch.core.weights import least_alive_hits
 from repro_torch.kernels.mw_update import ops, ref
 
 

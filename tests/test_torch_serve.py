@@ -31,16 +31,14 @@ def test_serve_classify_cpu_prints_one_json_line():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "sharded"], "item 9"),
-    (["--engine", "sharded", "--scenario", "byzantine"], "item 9"),
-    (["--engine", "sharded", "--cls", "tree", "--scenario", "xor"],
-     "item 9"),
+    (["--workload", "serve-stream"], "item 13"),
+    (["--workload", "serve-stream", "--engine", "sharded"], "item 13"),
 ])
-def test_serve_names_the_queue_item_of_what_is_not_ported(flags, item):
-    args = serve.build_parser().parse_args(
-        ["--device", "cpu", "--batch", "1", "--m", "64"] + flags)
-    with pytest.raises(NotImplementedError, match=item):
-        serve.run_classify(args)
+def test_serve_names_the_queue_item_of_what_is_not_ported(flags, item,
+                                                          monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["serve", "--device", "cpu"] + flags)
+    with pytest.raises(SystemExit, match=item):
+        serve.main()
 
 
 @pytest.mark.parametrize("flags", [
