@@ -5,8 +5,9 @@
 Builds the hand-written kernels from this checkout's sources (one nvcc
 per source, all at once), holds each against its plain PyTorch version
 on the card (mw_update unshifted and shifted, one launch a call; the
-histogram on both routes, ``sort`` and ``tiled``; the stump's sort
-route on special values too; flash attention on both routes: ``wgmma``
+histogram on its three routes, ``sort``, ``tiled`` and ``chunked``;
+the stump's sort route on special values too; flash attention on both
+routes: ``wgmma``
 for bf16, ``cuda_cores`` for float32), times each at its path's
 shapes by CUDA events around the call and by the profiler's device
 time per launch, checks with ``cuobjdump -sass``
@@ -37,6 +38,18 @@ UTMALDG), and drives the port's paths through
   validated against the wire counters and the collectives equal to the
   census; and the host loop on task 0 of the thresholds slice, equal to
   the batched engine's task 0;
+* the streaming tier (``--chunk-size``) — the thresholds slice with
+  each shard sorted in tiles of 2^14 on the batched engine and on the
+  sharded one, each equal to the monolithic batched run on every
+  protocol output and ledger field; a coreset-mode tree run at m = 2^14
+  with every histogram in tiles of 128 (each launch on the kernel's
+  ``chunked`` route), and the chunked tree equal to the CPU at B = 2,
+  m = 256; the chunked histogram at the reference's roofline shape
+  (m = 10^6, N = 4, F = 8, Q = 32, tiles of 16384),
+  bitwise to its plain version and to the monolithic kernel; and the
+  quantile sketch of 10^6 points fed through pinned host memory and a
+  copy stream, held to measured error ≤ its bound ≤ 1/100 and to the
+  CPU's sketch;
 
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
@@ -130,6 +143,23 @@ LARGE_ARGS = with_flags(SLICE_ARGS, batch=4, m=1 << 22)
 # dropout run as it is
 SHARD = ["--engine", "sharded"]
 SHARD_TREE_ARGS = with_flags(TREE_ARGS, comm_mode="histogram", m=1 << 14)
+# the streaming tier (--chunk-size): the thresholds slice with each
+# player's shard (mloc = 2^18) sorted in 16 tiles of 2^14 merged over 4
+# levels, on both engines; the tree slice in coreset mode with every
+# histogram in tiles of 128 (the pooled coreset, k·c = 400 points, in
+# 4 tiles), its depth (m) cut to 2^14 as the histogram-mode run's
+CHUNK_ARGS = SLICE_ARGS + ["--chunk-size", str(1 << 14)]
+CHUNK_TREE_ARGS = with_flags(TREE_ARGS, m=1 << 14) + ["--chunk-size", "128"]
+# the chunked histogram at the reference's roofline shape
+# (benchmarks/streaming.py:147-177): m = 10^6 points, N = 4 nodes, F = 8,
+# Q = 32, tiles of 16384, dyadic weights k/256
+HIST_STREAM = dict(N=4, c=10 ** 6, F=8, Q=32, tile=1 << 14)
+# the sketch build (benchmarks/streaming.py:180-226): m = 10^6 int32
+# points on the 2^16 domain, hits in [0, 13), tiles of 16384 through the
+# pinned feed, capacity 32768, a coreset of 1024
+SKETCH = dict(m=10 ** 6, n=1 << 16, hmax=13, tile=1 << 14, cap=1 << 15,
+              c=1024)
+EPS_APPROX = 1.0 / 100.0           # the paper's ε (core/types.py)
 # stump cases, (B or None for the unbatched form, c, F, Q, kind): the
 # reference's (tests/test_kernels.py: sweep, block edges, all-negative
 # weights, duplicated thresholds, batched grid), then a ragged shape;
@@ -433,6 +463,106 @@ def phase_histogram(ops, ref) -> dict:
             "paths": {"tree": {**t, "plain_ms": plain_ms,
                                "bound_ms": bound_ms},
                       "tree_level0": one}}
+
+
+def stream_hist_inputs(G, N, c, F, Q, seed):
+    """The reference's streaming-benchmark histogram inputs on the card:
+    x on bin centres, w = k/256 (dyadic), wy = ±w."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randint(0, Q, (G, c, F), generator=g, device="cuda") + 0.5) / Q
+    w = torch.randint(0, 256, (G, N, c), generator=g, device="cuda") / 256.0
+    flip = torch.rand((G, N, c), generator=g, device="cuda") < 0.5
+    return x, w, torch.where(flip, -w, w)
+
+
+def phase_chunked_histogram(ops, ref) -> dict:
+    """The histogram's "chunked" route (the streaming tier) against its
+    plain version on the card, bitwise: ragged tiles, the batched form,
+    a tile ≥ c (the monolithic route), the tree run's pooled shape, and
+    the reference's roofline shape [N = 4, c = 10^6, F = 8, Q = 32] in
+    tiles of 16384, where it must also equal the monolithic kernel.
+    Returns the roofline shape's numbers."""
+    cases = [dict(G=1, N=3, c=257, F=5, Q=16, tile=64),
+             dict(G=1, N=3, c=512, F=5, Q=16, tile=128),
+             dict(G=1, N=3, c=130, F=5, Q=16, tile=200),
+             dict(G=4, N=3, c=257, F=5, Q=16, tile=64),
+             dict(G=16, N=2, c=400, F=8, Q=32, tile=128),
+             dict(G=16, N=1, c=400, F=8, Q=32, tile=128)]
+    for i, case in enumerate(cases):
+        tile = case.pop("tile")
+        x, w, wy = hist_inputs(seed=200 + i, edges=True, **case)
+        Q = case["Q"]
+        before = dict(ops.route_launches)
+        kw, kwy = ops.node_histograms(x, w, wy, Q, chunk_size=tile)
+        torch.cuda.synchronize()
+        route = [r for r, n in ops.route_launches.items() if n > before[r]]
+        want = ["chunked"] if tile < case["c"] else ["sort"]
+        check(route == want, f"chunked histogram {case}, tile {tile}: "
+              f"route {route}, not {want}")
+        rw, rwy = ops.node_histograms(x, w, wy, Q, interpret=True,
+                                      chunk_size=tile)
+        check(torch.equal(kw, rw) and torch.equal(kwy, rwy),
+              f"chunked histogram differs from its plain version at "
+              f"{case}, tile {tile}")
+        log(f"chunked histogram {case} tile {tile}: bitwise to the plain "
+            f"version (route {route})")
+    N, c, F, Q, tile = (HIST_STREAM[k] for k in ("N", "c", "F", "Q", "tile"))
+    x, w, wy = stream_hist_inputs(1, N, c, F, Q, seed=11)
+
+    def call():
+        return ops.node_histograms(x, w, wy, Q, chunk_size=tile)
+
+    kw, kwy = call()
+    rw, rwy = ops.node_histograms(x, w, wy, Q, interpret=True,
+                                  chunk_size=tile)
+    mw, mwy = ops.node_histograms(x, w, wy, Q)          # route "tiled"
+    torch.cuda.synchronize()
+    check(torch.equal(kw, rw) and torch.equal(kwy, rwy),
+          "chunked histogram at the roofline shape differs from its plain "
+          "version")
+    check(torch.equal(kw, mw) and torch.equal(kwy, mwy),
+          "chunked histogram at the roofline shape differs from the "
+          "monolithic kernel on dyadic weights")
+    ms = time_ms(call, reps=50, warm=5)
+    dev, parts = device_ms(call)
+    plain_ms = time_ms(lambda: ops.node_histograms(
+        x, w, wy, Q, interpret=True, chunk_size=tile), reps=5, warm=1)
+    mono_ms = time_ms(lambda: ops.node_histograms(x, w, wy, Q), reps=5,
+                      warm=1)
+    offs = torch.arange(F, device="cuda") * Q
+
+    def torch_calls():
+        """The function in PyTorch calls: binning, then one index_add_
+        of every (point, feature)'s weights into its flat bin."""
+        idx = (ref.bin_index(x[0], Q) + offs).reshape(-1)
+        vals = torch.cat([w[0], wy[0]])[:, :, None].expand(
+            2 * N, c, F).reshape(2 * N, c * F)
+        return torch.zeros((2 * N, F * Q), device="cuda").index_add_(
+            1, idx, vals)
+
+    t = torch_calls().reshape(2, N, F, Q)
+    check(torch.equal(t[0], kw[0]) and torch.equal(t[1], kwy[0]),
+          "the chunked histogram in PyTorch calls disagrees with the kernel "
+          "on dyadic weights")
+    torch_ms = time_ms(torch_calls, reps=20, warm=3)
+    bytes_moved = 4 * (c * F + 2 * N * c + 2 * N * F * Q)
+    adds = 2 * N * c * F
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / FP32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"chunked histogram N={N} c={c} F={F} Q={Q} tile={tile} "
+        f"({-(-c // tile)} tiles): bitwise to the plain version and to the "
+        f"monolithic kernel; kernel_ms {ms:.4f} (CUDA events around the "
+        f"call) device_ms {fmt_ms(dev)} (profiler, per call of two "
+        f"launches: {parts}) plain_ms {plain_ms:.4f} monolithic_ms "
+        f"{mono_ms:.4f} (route tiled) torch_calls_ms {torch_ms:.4f} "
+        f"(binning and index_add_) bound_ms {bound_ms:.4f} ({bytes_moved} "
+        f"bytes, {adds} adds)")
+    return {"shape": [1, N, c, F, Q], "tile": tile, "ms": ms,
+            "device_ms": dev, "device_ms_by_kernel": parts,
+            "plain_ms": plain_ms, "monolithic_ms": mono_ms,
+            "torch_calls_ms": torch_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 STUMP_SPECIALS = (0.0, -0.0, math.inf, -math.inf, math.nan, 3.4e38, -3.4e38)
@@ -1022,6 +1152,126 @@ def phase_sharded_card_vs_cpu(sharded, prng, tasks, weak) -> None:
             f"{card.collective_calls})")
 
 
+def phase_chunked_tree(serve, ledger, batched, prng, tasks, weak, hist_ops,
+                       depth) -> tuple[dict, dict]:
+    """The tree run with chunked histograms (``--chunk-size 128``) at
+    m = 2^14, every histogram launch on the "chunked" route; then the
+    chunked tree on the card against the CPU at B = 2, m = 256, where
+    the pooled coreset has the same 400 points in 4 tiles (a CPU run at
+    B = 16, m = 2^14 would run far past this script's time limit).  The
+    engine's tree weights are not dyadic, so the chunked run is held to
+    the CPU and not to the monolithic run, whose sums take another
+    order.  Returns (the run's launches, its histogram routes)."""
+    hist_ops.route_launches = dict.fromkeys(hist_ops.route_launches, 0)
+    _, res, launches = phase_slice(serve, ledger, CHUNK_TREE_ARGS,
+                                   "chunked tree run")
+    routes = dict(hist_ops.route_launches)
+    check(launches["histogram"] == depth * res.steps
+          and routes == {"sort": 0, "tiled": 0,
+                         "chunked": launches["histogram"]},
+          f"chunked tree run: histogram launches {launches['histogram']}, "
+          f"routes {routes}, {res.steps} steps")
+    check(res.ok.any(), "chunked tree run: no task finished")
+    log(f"chunked tree run: histogram routes {routes}")
+    args = serve.build_parser().parse_args(CHUNK_TREE_ARGS)
+    cls = serve.make_class(args)
+    cfg = serve.make_config(args, cls)
+    x, y, _ = tasks.make_batch(cls, 2, 256, 4, 2, seed0=3)
+    out, small = {}, {}
+    for dev in ("cuda", "cpu"):
+        hist_ops.route_launches = dict.fromkeys(hist_ops.route_launches, 0)
+        out[dev] = batched.run_accurately_classify_batched(
+            x, y, prng.split(prng.key(5, device=dev), 2), cfg, cls,
+            device=dev)
+        small[dev] = dict(hist_ops.route_launches)
+    check(small["cpu"] == dict.fromkeys(small["cpu"], 0)
+          and small["cuda"]["chunked"] == depth * out["cuda"].steps
+          and small["cuda"]["sort"] == small["cuda"]["tiled"] == 0,
+          f"chunked tree, card vs cpu: routes {small}")
+    for b in range(2):
+        card, cpu = (protocol_outputs(out[d], b) for d in ("cuda", "cpu"))
+        check(card == cpu, f"chunked tree, card vs cpu, task {b}: protocol "
+              f"outputs differ in {[k for k in card if card[k] != cpu[k]]}")
+    log(f"chunked tree, card vs cpu (B = 2, m = 256): protocol outputs "
+        f"equal ({out['cuda'].steps} steps, ok {int(out['cuda'].ok.sum())},"
+        f" card routes {small['cuda']})")
+    return launches, routes
+
+
+def phase_sketch(streaming, chunks, approximation) -> dict:
+    """The sketch build at the reference's benchmark scale on the card,
+    through the pinned double-buffered feed: measured approximation
+    error ≤ the sketch's bound ≤ ε, the sketch equal to the CPU's
+    (fields and coreset indices), points/s and peak memory beside the
+    monolithic quantile coreset of the same sample."""
+    m, n, tile, cap, c = (SKETCH[k] for k in ("m", "n", "tile", "cap", "c"))
+    rng = np.random.default_rng(m)
+    x = rng.integers(0, n, size=m).astype(np.int32)
+    y = rng.choice(np.array([-1, 1], np.int8), size=m)
+    hits = rng.integers(0, SKETCH["hmax"], size=m).astype(np.int32)
+    alive = np.ones(m, bool)
+    w = streaming.sketch_weights(torch.from_numpy(hits),
+                                 torch.from_numpy(alive)).numpy()
+
+    def build(dev):
+        return streaming.build_sketch(
+            chunks.iter_shard_chunks(x, y, w, tile, device=dev), cap, n=n)
+
+    build("cuda")                                         # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sk = build("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    idx = streaming.sketch_coreset(sk, c)
+    bound = float(streaming.coreset_bound(sk, c))
+    dev_arrays = [torch.from_numpy(v).cuda() for v in (x, y, hits, alive)]
+    theta = np.arange(0, n + 1, 256, dtype=np.int32)
+    grid = torch.from_numpy(np.stack(
+        [np.concatenate([theta, theta]),
+         np.concatenate([np.ones_like(theta), -np.ones_like(theta)])],
+        axis=1)).cuda()
+
+    def predict(params, pts):
+        return (torch.where(pts <= params[:, 0:1], 1, -1)
+                * params[:, 1:2]).to(torch.int8)
+
+    measured = float(approximation.approximation_error(
+        idx, *dev_arrays, predict, grid))
+    check(measured <= bound <= EPS_APPROX,
+          f"sketch: measured {measured} <= bound {bound} <= {EPS_APPROX} "
+          f"violated")
+    cpu = build("cpu")
+    for f in streaming.QuantileSketch._fields:
+        a, b = getattr(sk, f).cpu(), getattr(cpu, f)
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if a.dtype == torch.float32 else torch.equal(a, b))
+        check(same, f"sketch: field {f} differs between the card and the "
+              f"CPU")
+    check(torch.equal(idx.cpu(), streaming.sketch_coreset(cpu, c)),
+          "sketch: coreset indices differ between the card and the CPU")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mono = approximation.quantile_coreset(
+        *[torch.from_numpy(v).cuda() for v in (x, y, hits, alive)], c)
+    torch.cuda.synchronize()
+    mono_wall = time.perf_counter() - t0
+    mono_peak = torch.cuda.max_memory_allocated()
+    log(f"sketch m={m} tile={tile} cap={cap} c={c}: measured {measured:.6f}"
+        f" <= bound {bound:.6f} <= eps {EPS_APPROX}; card == cpu on every "
+        f"field and the {c} indices; build {wall:.4f} s "
+        f"({m / wall:,.0f} points/s, feed included), peak "
+        f"{peak} bytes; monolithic quantile_coreset {mono_wall:.4f} s "
+        f"({m / mono_wall:,.0f} points/s, transfer included), peak "
+        f"{mono_peak} bytes (err_p {float(sk.err_p):.6g} gran_p "
+        f"{float(sk.gran_p):.6g}, {mono.shape[0]} indices)")
+    return {"measured": measured, "bound": bound, "build_s": wall,
+            "peak_bytes": peak, "mono_s": mono_wall, "mono_peak": mono_peak}
+
+
 def flash_inputs(B, S, H, KV, hd, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1334,8 +1584,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch import configs, models
-    from repro_torch.core import (batched, classify, ledger, prng,
-                                  sharded_batched, tasks, weak)
+    from repro_torch.core import (approximation, batched, classify, ledger,
+                                  prng, sharded_batched, streaming, tasks,
+                                  weak)
+    from repro_torch.data import chunks
     from repro_torch.models import layers
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -1377,10 +1629,13 @@ def main() -> int:
                               stump_kernel),
                "flash_attention": phase("flash attention", phase_flash,
                                         flash_ops, flash_kernel, _build)}
+    entries["histogram"]["paths"]["chunked_roofline"] = phase(
+        "chunked histogram", phase_chunked_histogram, hist_ops, hist_ref)
     # 4. the integer-track path at full size
-    _, int_res, int_launches = phase("thresholds slice", phase_slice,
-                                     serve, ledger, SLICE_ARGS,
-                                     "thresholds slice")
+    int_out, int_res, int_launches = phase("thresholds slice", phase_slice,
+                                           serve, ledger, SLICE_ARGS,
+                                           "thresholds slice")
+    int_peak = torch.cuda.max_memory_allocated()
     check(int_launches["histogram"] == 0,
           "the integer track launched the histogram kernel")
     phase("thresholds profile", phase_profile, batched, serve, prng, tasks,
@@ -1402,7 +1657,8 @@ def main() -> int:
     check(launches["histogram"] == depth * res.steps,
           f"histogram launches {launches['histogram']} != depth {depth} x "
           f"steps {res.steps}")
-    check(hist_routes == {"sort": launches["histogram"], "tiled": 0},
+    check(hist_routes == {"sort": launches["histogram"], "tiled": 0,
+                          "chunked": 0},
           f"tree slice: histogram routes {hist_routes}, not all "
           f"{launches['histogram']} on the sort route")
     log(f"tree slice: histogram routes {hist_routes}")
@@ -1459,14 +1715,38 @@ def main() -> int:
         f"{sdrop_out['ok']}")
     host_launches = phase("host loop", phase_host_loop, serve, classify,
                           prng, SLICE_ARGS, int_res)
-    # 9. card against CPU
+    # 9. the streaming tier: the thresholds slice sorted in tiles on both
+    # engines, each equal to the monolithic batched run; the tree run
+    # with chunked histograms; the sketch build through the pinned feed
+    chunk_out, chunk_res, chunk_launches = phase(
+        "chunked thresholds slice", phase_slice, serve, ledger, CHUNK_ARGS,
+        "chunked thresholds slice")
+    chunk_peak = torch.cuda.max_memory_allocated()
+    check(chunk_res.steps == int_res.steps, f"chunked thresholds slice: "
+          f"{chunk_res.steps} steps, monolithic {int_res.steps}")
+    assert_same_protocol(int_res, chunk_res, "chunked thresholds slice")
+    log(f"chunked thresholds slice: every protocol output and ledger equal "
+        f"to the monolithic run; ms/step "
+        f"{chunk_out['wall_s'] * 1e3 / chunk_res.steps:.2f} (monolithic "
+        f"{int_out['wall_s'] * 1e3 / int_res.steps:.2f}), peak "
+        f"{chunk_peak} bytes (monolithic {int_peak})")
+    _, _, schunk_launches = phase(
+        "sharded chunked thresholds slice", phase_sharded, serve, ledger,
+        CHUNK_ARGS, "sharded chunked thresholds slice", int_res)
+    ctree_launches, ctree_routes = phase(
+        "chunked tree run", phase_chunked_tree, serve, ledger, batched, prng,
+        tasks, weak, hist_ops, depth)
+    entries["histogram"]["paths"]["chunked_tree"] = {
+        "route_launches": ctree_routes}
+    phase("sketch", phase_sketch, streaming, chunks, approximation)
+    # 10. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
     phase("sharded card vs cpu", phase_sharded_card_vs_cpu,
           sharded_batched, prng, tasks, weak)
     phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
           flash_ops)
-    # 10. results: each kernel's top-level launches are its own main
+    # 11. results: each kernel's top-level launches are its own main
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``
@@ -1476,7 +1756,10 @@ def main() -> int:
             "lm": lm_launches, "sharded_thresholds": shard_launches,
             "tree_histogram_m14": tree14_launches,
             "sharded_tree": stree_launches,
-            "sharded_dropout": sdrop_launches, "host_loop": host_launches}
+            "sharded_dropout": sdrop_launches, "host_loop": host_launches,
+            "chunked_thresholds": chunk_launches,
+            "sharded_chunked_thresholds": schunk_launches,
+            "chunked_tree": ctree_launches}
     for name, entry in entries.items():
         entry["launches"] = runs[entry["path"]][name]
         for path, counts in runs.items():

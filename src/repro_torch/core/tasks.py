@@ -11,9 +11,10 @@ adversarial split).  ``make_batch(scenario=…)`` corrupts through
 :func:`opt_counts` is OPT, the best uniform-weight error count of the
 class on the whole sample: the class's own ERM at weights 1/m, rounded
 (the reference's ``true_opt``), except for axis stumps, whose counts
-come exactly from one launch of the stump kernel.  ``pad_shards`` and
-``shard_chunk_feed`` wait for the streaming slice (ROADMAP queue 1,
-item 10).
+come exactly from one launch of the stump kernel.  :func:`pad_shards`
+pads shards to a bucket's width with dead rows, and
+:func:`shard_chunk_feed` is the streaming tier's double-buffered feed
+of one player's shard (``repro_torch.data.chunks``).
 """
 
 from __future__ import annotations
@@ -98,6 +99,47 @@ def make_batch(cls, B: int, m: int, k: int, noise: int, seed0: int = 0,
                     adversarial_split=adversarial_split)
           for b in range(B)]
     return (np.stack([t.x for t in ts]), np.stack([t.y for t in ts]), ts)
+
+
+def pad_shards(x: np.ndarray, y: np.ndarray, mloc: int):
+    """Pad one task's per-player shards up to ``mloc`` rows for shape
+    bucketing: x [k, mloc0(, F)], y [k, mloc0] → (x_pad, y_pad, alive)
+    at [k, mloc(, F)], the appended rows repeating each shard's last
+    example and dead in the alive mask, so the engines ignore them."""
+    k, mloc0 = y.shape
+    if mloc < mloc0:
+        raise ValueError(f"bucket mloc={mloc} < task mloc={mloc0}")
+    alive = np.ones((k, mloc0), bool)
+    pad = mloc - mloc0
+    if pad == 0:
+        return x, y, alive
+    reps = [(0, 0)] * x.ndim
+    reps[1] = (0, pad)
+    return (np.pad(x, reps, mode="edge"),
+            np.pad(y, [(0, 0), (0, pad)], mode="edge"),
+            np.pad(alive, [(0, 0), (0, pad)], constant_values=False))
+
+
+def shard_chunk_feed(task: Task, player: int, chunk_size: int,
+                     weights: np.ndarray | None = None, depth: int = 1,
+                     device=None):
+    """The streaming tier's feed of one player's shard: double-buffered
+    ``(x, y, w, start)`` tiles of ``task.x[player]`` on ``device`` (the
+    card unless the caller asks for ``cpu``), what
+    :func:`repro_torch.core.streaming.build_sketch` consumes.
+    ``weights`` defaults to uniform; the integer track feeds its domain
+    points, the feature track its first column (the engines' sort
+    axis)."""
+    from repro_torch.data import chunks
+
+    x = task.x[player]
+    if x.ndim > 1:
+        x = x[:, 0]
+    y = task.y[player]
+    w = (np.ones(y.shape, np.float32) if weights is None
+         else np.asarray(weights, np.float32))
+    return chunks.iter_shard_chunks(x, y, w, chunk_size, depth=depth,
+                                    device=device)
 
 
 def _stump_opt_counts(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,10 @@ ADABOOST_ROUNDS_FACTOR = 6
 
 @dataclasses.dataclass(frozen=True)
 class BoostConfig:
-    """Static configuration of the protocol (the reference's fields;
-    ``chunk_size`` must stay None until the streaming slice)."""
+    """Static configuration of the protocol (the reference's fields).
+    ``chunk_size`` sorts each player's shard in tiles of that many
+    points merged by ranks (``streaming.sort_order``): the same order
+    bit for bit, so every protocol output is unchanged."""
 
     k: int
     coreset_size: int = 256

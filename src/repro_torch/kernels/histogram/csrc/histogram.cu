@@ -51,6 +51,20 @@
 // points' bin ids (int16) and both weights in shared memory, then each
 // thread walks all c points in index order and adds the weights of the
 // points in its bin.
+//
+// Route "chunked" (the streaming tier: the reference's
+// _chunked_histograms, src/repro/kernels/histogram/ops.py:44, a
+// lax.scan of the kernel over point tiles): the function is the tiles'
+// histograms, each in its own k-block order, folded in tile order into
+// an accumulator that starts at +0.0.  Two launches, whatever the
+// number of tiles: one CTA per (f, tile, g) sorts its tile's column by
+// bin as route "sort" does and writes the tile's partials to a scratch
+// [G, T, N, F, Q]; then one thread per output folds its T partials in
+// order.  The weights stay in device memory (a tile of N nodes' weights
+// does not fit in shared memory at the tier's tiles: 590 KB at 16384
+// points and N = 4), so the walk reads them through L2.  Bound at the
+// tier's roofline shape [N = 4, c = 10^6, F = 8, Q = 32]: about 64 MB
+// read (x 32 MB, w and wy 32 MB), ~0.02 ms at 3.35 TB/s.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,35 +96,18 @@ size_t smem_bytes(int N, int c, int bins) {
          2 * 2 * static_cast<size_t>(c);
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_sort(const float* __restrict__ x, const float* __restrict__ w,
-          const float* __restrict__ wy, float* __restrict__ hw,
-          float* __restrict__ hwy, int N, int c, int F, int bins,
-          int block) {
-  extern __shared__ float smem[];
-  float* const w_s = smem;                                  // [N][c]
-  float* const wy_s = w_s + static_cast<size_t>(N) * c;     // [N][c]
-  int* const slot = reinterpret_cast<int*>(wy_s + static_cast<size_t>(N) * c);
-  int* const first = slot + kWarps * bins;                  // [bins + 1]
-  uint16_t* const bin_s = reinterpret_cast<uint16_t*>(first + bins + 1);
-  uint16_t* const order = bin_s + c;
-
-  const int f = blockIdx.x;
-  const int64_t g = blockIdx.y;
+// A stable counting sort of a column's c points by bin: `order` gets
+// the point indices grouped by bin in index order, `first[q]` the first
+// slot of bin q (first[bins] = c).  Each warp takes a run of consecutive
+// points and counts them by bin (__match_any_sync groups the lanes of a
+// bin, the group's last lane adds its size); a scan over the warps and
+// the bins turns the counts into each warp's first slot per bin; a
+// second walk ranks each point by its slot plus the lanes of its group
+// below it.  `slot` [kWarps][bins] must be zero on entry; every thread
+// of the block calls it.
+__device__ void sort_by_bin(const uint16_t* bin_s, uint16_t* order,
+                            int* slot, int* first, int c, int bins) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* xg = x + g * c * F;
-  const float* wg = w + g * N * c;
-  const float* wyg = wy + g * N * c;
-  for (int e = tid; e < N * c; e += kThreads) {
-    w_s[e] = wg[e];
-    wy_s[e] = wyg[e];
-  }
-  for (int i = tid; i < c; i += kThreads)
-    bin_s[i] = static_cast<uint16_t>(
-        bin_of(xg[static_cast<int64_t>(i) * F + f], bins));
-  for (int e = tid; e < kWarps * bins; e += kThreads) slot[e] = 0;
-  __syncthreads();
-
   // warp `warp` owns points [i0, i1), whole 32-point steps but the last
   const int per = ((c + 31) / 32 + kWarps - 1) / kWarps * 32;
   const int i0 = min(c, warp * per), i1 = min(c, i0 + per);
@@ -166,13 +163,20 @@ hist_sort(const float* __restrict__ x, const float* __restrict__ w,
     __syncwarp();
   }
   __syncthreads();
+}
 
-  // one thread per (n, q): its bin's points in index order, k-blocks of
-  // `block` points
-  for (int o = tid; o < N * bins; o += kThreads) {
+// One thread per (n, q) output: its bin's points in index order, in
+// k-blocks of `block` points (each block from +0, the block sums added
+// in order).  w and wy are [N][stride] (shared or device memory); the
+// output of node n lies at out_w[n * out_stride + q].
+__device__ void walk_bins(const uint16_t* order, const int* first,
+                          const float* w, const float* wy, int64_t stride,
+                          int N, int bins, int block, float* out_w,
+                          float* out_wy, int64_t out_stride) {
+  for (int o = threadIdx.x; o < N * bins; o += kThreads) {
     const int n = o / bins, q = o - n * bins;
-    const float* wn = w_s + static_cast<size_t>(n) * c;
-    const float* wyn = wy_s + static_cast<size_t>(n) * c;
+    const float* wn = w + n * stride;
+    const float* wyn = wy + n * stride;
     const int r0 = first[q], r1 = first[q + 1];
     float tot_w = 0.0f, tot_wy = 0.0f, part_w = 0.0f, part_wy = 0.0f;
     int next = r0 < r1 ? (order[r0] / block + 1) * block : 0;  // block end
@@ -188,10 +192,115 @@ hist_sort(const float* __restrict__ x, const float* __restrict__ w,
       part_w = part_w + wn[i];
       part_wy = part_wy + wyn[i];
     }
-    const int64_t out = ((g * N + n) * F + f) * bins + q;
-    hw[out] = tot_w + part_w;
-    hwy[out] = tot_wy + part_wy;
+    out_w[n * out_stride + q] = tot_w + part_w;
+    out_wy[n * out_stride + q] = tot_wy + part_wy;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hist_sort(const float* __restrict__ x, const float* __restrict__ w,
+          const float* __restrict__ wy, float* __restrict__ hw,
+          float* __restrict__ hwy, int N, int c, int F, int bins,
+          int block) {
+  extern __shared__ float smem[];
+  float* const w_s = smem;                                  // [N][c]
+  float* const wy_s = w_s + static_cast<size_t>(N) * c;     // [N][c]
+  int* const slot = reinterpret_cast<int*>(wy_s + static_cast<size_t>(N) * c);
+  int* const first = slot + kWarps * bins;                  // [bins + 1]
+  uint16_t* const bin_s = reinterpret_cast<uint16_t*>(first + bins + 1);
+  uint16_t* const order = bin_s + c;
+
+  const int f = blockIdx.x;
+  const int64_t g = blockIdx.y;
+  const int tid = threadIdx.x;
+  const float* xg = x + g * c * F;
+  const float* wg = w + g * N * c;
+  const float* wyg = wy + g * N * c;
+  for (int e = tid; e < N * c; e += kThreads) {
+    w_s[e] = wg[e];
+    wy_s[e] = wyg[e];
+  }
+  for (int i = tid; i < c; i += kThreads)
+    bin_s[i] = static_cast<uint16_t>(
+        bin_of(xg[static_cast<int64_t>(i) * F + f], bins));
+  for (int e = tid; e < kWarps * bins; e += kThreads) slot[e] = 0;
+  __syncthreads();
+
+  sort_by_bin(bin_s, order, slot, first, c, bins);
+  walk_bins(order, first, w_s, wy_s, c, N, bins, block,
+            hw + (g * N * F + f) * bins, hwy + (g * N * F + f) * bins,
+            static_cast<int64_t>(F) * bins);
+}
+
+
+// ---------------------------------------------------------------------
+// route "chunked": the streaming tier's tile-by-tile histogram
+// ---------------------------------------------------------------------
+
+// Shared memory of one partials CTA: the per-warp bin slots int32
+// [kWarps][bins], the bins' first slots int32 [bins + 1], the tile's
+// bins and sorted point indices uint16 [tile] each.
+size_t chunk_smem_bytes(int tile, int bins) {
+  return 4 * (static_cast<size_t>(kWarps) * bins + bins + 1) +
+         2 * 2 * static_cast<size_t>(tile);
+}
+
+// Launch 1: one CTA per (f, tile, g).  The tile's points [i0, i0 + ct)
+// are sorted by bin as in route "sort"; the weights stay in device
+// memory (a tile of N nodes does not fit in shared memory); one thread
+// per (n, q) sums its bin's points in k-blocks of `block` and writes
+// the tile's partial to part[g, tile, n, f, q].  Points of the padded
+// last tile past c are not read: each adds +0.0 to bin 0, and a partial
+// that starts at +0 never changes under a +0.
+__global__ void __launch_bounds__(kThreads)
+hist_chunk_partials(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ wy, float* __restrict__ part_w,
+                    float* __restrict__ part_wy, int N, int c, int F,
+                    int bins, int tile, int block) {
+  extern __shared__ int ismem[];
+  int* const slot = ismem;                                  // [kWarps][bins]
+  int* const first = slot + kWarps * bins;                  // [bins + 1]
+  uint16_t* const bin_s = reinterpret_cast<uint16_t*>(first + bins + 1);
+  uint16_t* const order = bin_s + tile;
+
+  const int f = blockIdx.x;
+  const int64_t t = blockIdx.y, T = gridDim.y;
+  const int64_t g = blockIdx.z;
+  const int i0 = static_cast<int>(t) * tile;   // < c < 2^31
+  const int ct = min(tile, c - i0);
+  const float* xg = x + (g * c + i0) * F;
+  for (int i = threadIdx.x; i < ct; i += kThreads)
+    bin_s[i] = static_cast<uint16_t>(
+        bin_of(xg[static_cast<int64_t>(i) * F + f], bins));
+  for (int e = threadIdx.x; e < kWarps * bins; e += kThreads) slot[e] = 0;
+  __syncthreads();
+
+  sort_by_bin(bin_s, order, slot, first, ct, bins);
+  const int64_t out = ((g * T + t) * N * F + f) * bins;
+  walk_bins(order, first, w + g * N * c + i0, wy + g * N * c + i0, c, N,
+            bins, block, part_w + out, part_wy + out,
+            static_cast<int64_t>(F) * bins);
+}
+
+// Launch 2: one thread per output (g, n, f, q) folds the T tile
+// partials in tile order into an accumulator that starts at +0.0, the
+// reference's lax.scan over tiles.
+__global__ void __launch_bounds__(kThreads)
+hist_chunk_fold(const float* __restrict__ part_w,
+                const float* __restrict__ part_wy, float* __restrict__ hw,
+                float* __restrict__ hwy, int T, int64_t per, int64_t total) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (o >= total) return;
+  const int64_t g = o / per, r = o - g * per;
+  const float* pw = part_w + g * T * per + r;
+  const float* pwy = part_wy + g * T * per + r;
+  float acc_w = 0.0f, acc_wy = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    acc_w = acc_w + pw[t * per];
+    acc_wy = acc_wy + pwy[t * per];
+  }
+  hw[o] = acc_w;
+  hwy[o] = acc_wy;
 }
 
 }  // namespace sorted
@@ -308,5 +417,48 @@ extern "C" int histogram_launch(const void* x, const void* w,
   } else {
     return cudaErrorInvalidValue;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streaming tier's chunked histogram: x, w, wy, hw, hwy as above;
+// part_w, part_wy float32 [G, T, N, F, bins] scratch with T =
+// ceil(c / tile); `block` the k-block width inside a tile
+// (ref.xla_cpu_block(tile, N)); `smem` must be
+// sorted::chunk_smem_bytes(tile, bins), tile < 65536.  Enqueues two
+// launches on `stream` (the tiles' partials, then their fold in tile
+// order) and returns the first nonzero cudaGetLastError().
+extern "C" int histogram_chunked_launch(const void* x, const void* w,
+                                        const void* wy, void* part_w,
+                                        void* part_wy, void* hw, void* hwy,
+                                        int G, int N, int c, int F, int bins,
+                                        int tile, int block, long long smem,
+                                        void* stream) {
+  if (G <= 0 || N <= 0 || c <= 0 || F <= 0 || bins < 2 || block <= 0 ||
+      tile <= 0 || tile >= 65536 || G > 65535 ||
+      smem != static_cast<long long>(sorted::chunk_smem_bytes(tile, bins)))
+    return cudaErrorInvalidValue;
+  const int T = (c + tile - 1) / tile;
+  if (T > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sorted::hist_chunk_partials,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  float* pw = static_cast<float*>(part_w);
+  float* pwy = static_cast<float*>(part_wy);
+  sorted::hist_chunk_partials<<<dim3(F, T, G), sorted::kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(wy), pw, pwy, N, c, F, bins, tile, block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t per = static_cast<int64_t>(N) * F * bins;
+  const int64_t total = per * G;
+  const unsigned grid =
+      static_cast<unsigned>((total + sorted::kThreads - 1) / sorted::kThreads);
+  sorted::hist_chunk_fold<<<grid, sorted::kThreads, 0, s>>>(
+      pw, pwy, static_cast<float*>(hw), static_cast<float*>(hwy), T, per,
+      total);
   return static_cast<int>(cudaGetLastError());
 }

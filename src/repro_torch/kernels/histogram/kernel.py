@@ -11,7 +11,11 @@ column's points by bin, then one thread per (node, bin) output adding
 its bin's points in index order) wherever the column's state fits in a
 block's shared memory, which covers the engine's shapes; ``"tiled"``
 (the kernel's first design: one thread per (feature, bin) output
-walking every point) for the rest.
+walking every point) for the rest.  The streaming tier's chunked
+histogram is a third route, ``"chunked"`` (:func:`chunk_plan`,
+:func:`launch_chunked`): a tile's column sorted by bin as in ``"sort"``
+per CTA, its partials written to a scratch, then folded in tile order
+by a second launch.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import pathlib
 from repro_torch.kernels import _build
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "histogram.cu"
-ROUTES = ("sort", "tiled")
+ROUTES = ("sort", "tiled", "chunked")   # "chunked" has its own C entry
 SMEM_LIMIT = 232_448      # bytes of shared memory a block may use (sm_90)
 SORT_WARPS = 8            # warps of one "sort" CTA
 MAX_SORT_POINTS = 65535   # the sorted point indices are uint16
@@ -36,9 +40,10 @@ MAX_TILE = 256
 
 @dataclasses.dataclass(frozen=True)
 class HistPlan:
-    route: str              # "sort" or "tiled"
+    route: str              # "sort", "tiled" or "chunked"
     smem_bytes: int
-    tile: int = 0           # points staged per pass ("tiled" only)
+    tile: int = 0           # points staged per pass ("tiled"), per tile
+                            # ("chunked")
 
 
 def sort_smem_bytes(N: int, c: int, bins: int) -> int:
@@ -67,12 +72,39 @@ def plan(G: int, N: int, c: int, F: int, bins: int) -> HistPlan:
     return HistPlan("tiled", tile * (2 * F + 8), tile)
 
 
+def chunk_smem_bytes(tile: int, bins: int) -> int:
+    """Shared memory of one CTA of the "chunked" route's first launch:
+    the per-warp bin slots and the bins' first slots int32, the tile's
+    bins and sorted indices uint16 (``sorted::chunk_smem_bytes``)."""
+    return 4 * (SORT_WARPS * bins + bins + 1) + 2 * 2 * tile
+
+
+def chunk_plan(G: int, c: int, tile: int, bins: int) -> HistPlan:
+    """The "chunked" route for G columns of c points in tiles of
+    ``tile``: its shared memory, or ValueError for a shape it does not
+    take (a tile past 65535 points or past shared memory, or more than
+    65535 tiles or task columns)."""
+    smem = chunk_smem_bytes(tile, bins)
+    if tile > MAX_SORT_POINTS or smem > SMEM_LIMIT \
+            or -(-c // tile) > MAX_SORT_COLUMNS or G > MAX_SORT_COLUMNS:
+        raise ValueError(
+            f"the chunked histogram takes tiles of at most "
+            f"{MAX_SORT_POINTS} points within {SMEM_LIMIT} bytes of "
+            f"shared memory and at most {MAX_SORT_COLUMNS} tiles and "
+            f"columns: tile {tile} ({smem} bytes), c {c}, G {G}")
+    return HistPlan("chunked", smem, tile)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = _build.load(SOURCE)
     fn = lib.histogram_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.histogram_chunked_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -92,4 +124,23 @@ def launch(x, w, wy, hw, hwy, bins: int, block: int, stream) -> str:
         x.data_ptr(), w.data_ptr(), wy.data_ptr(), hw.data_ptr(),
         hwy.data_ptr(), G, N, c, F, bins, block, ROUTES.index(p.route),
         p.tile, p.smem_bytes, stream.cuda_stream), "histogram")
+    return p.route
+
+
+def launch_chunked(x, w, wy, part, hw, hwy, bins: int, tile: int,
+                   block: int, stream) -> str:
+    """Enqueue the "chunked" route on ``stream`` (two launches: the
+    tiles' partials, then their fold in tile order); raises on a launch
+    error.  Tensors as in :func:`launch`, plus ``part``, the partials'
+    contiguous float32 scratch [2, G, T, N, F, bins] with T =
+    ceil(c / tile); ``block`` the k-block width inside a tile
+    (ref.xla_cpu_block(tile, N))."""
+    G, c, F = x.shape
+    N = w.shape[1]
+    p = chunk_plan(G, c, tile, bins)
+    _build.check(library().histogram_chunked_launch(
+        x.data_ptr(), w.data_ptr(), wy.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), hw.data_ptr(), hwy.data_ptr(), G, N, c, F,
+        bins, tile, block, p.smem_bytes, stream.cuda_stream),
+        "histogram (chunked)")
     return p.route

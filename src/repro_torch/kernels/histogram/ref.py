@@ -98,6 +98,48 @@ def node_histograms_ref(x: torch.Tensor, w: torch.Tensor,
     return out[0], out[1]
 
 
+def node_histograms_chunked_ref(x: torch.Tensor, w: torch.Tensor,
+                                wy: torch.Tensor, bins: int,
+                                chunk_size: int):
+    """:func:`node_histograms_ref` accumulated over point tiles (the
+    reference's streaming-tier histogram, ``lax.scan`` over tiles).
+
+    Same arguments and result as :func:`node_histograms_ref` but for
+    ``chunk_size`` in place of the order: the points are padded with
+    zero rows and zero weights to a multiple of the tile, each tile's
+    histogram is summed in the order ``xla_cpu_block(chunk_size, N)``
+    gives, and the tiles fold in order into an accumulator that starts
+    at +0.0 (so a tile sum of −0.0 becomes +0.0, and a padded row adds
+    +0.0 into bin 0).  ``chunk_size ≥ c`` is the monolithic function.
+    On dyadic weights every order is exact, so the result equals the
+    monolithic one bit for bit.
+    """
+    c, F = x.shape[-2:]
+    N = w.shape[-2]
+    if chunk_size >= c:
+        return node_histograms_ref(x, w, wy, bins, xla_cpu_block(c, N))
+    t = chunk_size
+    T = -(-c // t)
+    pad = T * t - c
+    lead = x.shape[:-2]
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    wp = torch.nn.functional.pad(w, (0, pad))
+    wyp = torch.nn.functional.pad(wy, (0, pad))
+    # tiles as a leading axis: x [..., T, t, F], w [..., T, N, t]
+    xt = xp.reshape(lead + (T, t, F))
+    wt = wp.reshape(lead + (N, T, t)).transpose(-2, -3)
+    wyt = wyp.reshape(lead + (N, T, t)).transpose(-2, -3)
+    hw_t, hwy_t = node_histograms_ref(xt, wt, wyt, bins,
+                                      xla_cpu_block(t, N))
+    hw = torch.zeros(lead + (N, F, bins), dtype=torch.float32,
+                     device=x.device)
+    hwy = torch.zeros_like(hw)
+    for k in range(T):
+        hw = hw + hw_t[..., k, :, :, :]
+        hwy = hwy + hwy_t[..., k, :, :, :]
+    return hw, hwy
+
+
 def split_err_surface(hist_w: torch.Tensor,
                       hist_wy: torch.Tensor) -> torch.Tensor:
     """Two-leaf weighted error of every (feature, bin) split:

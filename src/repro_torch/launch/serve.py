@@ -21,7 +21,12 @@
   engine's player schedule.  Each finished task is then held to
   E_S(f) ≤ OPT — over the surviving shards under a fault — with OPT for
   all tasks from one call (one stump-kernel launch for ``--cls
-  stumps``), after the timed run.
+  stumps``), after the timed run.  ``--chunk-size`` (a flag of the
+  port, not of the reference's CLI) switches on the streaming tier:
+  each shard is sorted in tiles merged by ranks
+  (``BoostConfig.chunk_size``) and a tree class accumulates its
+  histograms over tiles (the kernel's ``chunked`` route); the protocol
+  outputs are those of the run without it.
 
 Usage:
     python -m repro_torch.launch.serve --workload lm --arch deepseek-7b \\
@@ -40,6 +45,9 @@ Usage:
         --cls stumps --scenario dropout --batch 4 --m 512
     python -m repro_torch.launch.serve --workload classify --engine sharded \\
         --batch 16 --m 1048576 --k 4 --noise 8 --domain 65536
+    python -m repro_torch.launch.serve --workload classify \\
+        --batch 16 --m 1048576 --k 4 --noise 8 --domain 65536 \\
+        --chunk-size 16384
 
 Each prints one JSON line with the reference's keys plus ``device`` and
 ``kernel_launches`` (the launches of each kernel the workload's path
@@ -60,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import time
@@ -288,13 +297,18 @@ def _check_feature_scenario(name: str, args) -> None:
 
 
 def make_class(args):
-    """The hypothesis class the CLI flags name (the reference's)."""
-    return weak.make_class(args.cls, n=args.domain,
-                           num_features=args.features,
-                           tree_depth=args.tree_depth,
-                           tree_bins=args.tree_bins,
-                           tree_comm_mode=args.comm_mode,
-                           tree_vote_topk=args.vote_topk)
+    """The hypothesis class the CLI flags name (the reference's); a
+    tree class takes ``--chunk-size`` for its histograms."""
+    cls = weak.make_class(args.cls, n=args.domain,
+                          num_features=args.features,
+                          tree_depth=args.tree_depth,
+                          tree_bins=args.tree_bins,
+                          tree_comm_mode=args.comm_mode,
+                          tree_vote_topk=args.vote_topk)
+    chunk = getattr(args, "chunk_size", None)
+    if chunk is not None and args.cls == "tree":
+        cls = dataclasses.replace(cls, chunk_size=chunk)
+    return cls
 
 
 def make_config(args, cls) -> BoostConfig:
@@ -302,7 +316,8 @@ def make_config(args, cls) -> BoostConfig:
     coreset for the feature-track classes, as in the reference."""
     return BoostConfig(k=args.k, coreset_size=args.coreset,
                        domain_size=args.domain, opt_budget=args.opt_budget,
-                       deterministic_coreset=not weak.needs_features(cls))
+                       deterministic_coreset=not weak.needs_features(cls),
+                       chunk_size=getattr(args, "chunk_size", None))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -338,6 +353,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--comm-mode voting: proposals per node per "
                          "player")
     ap.add_argument("--opt-budget", type=int, default=16)
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="the streaming tier: sort each shard in tiles "
+                         "of this many points (BoostConfig.chunk_size) "
+                         "and, for --cls tree, accumulate every histogram "
+                         "over tiles of this many points; the same "
+                         "protocol outputs")
     ap.add_argument("--engine", default="batched",
                     choices=["batched", "sharded"])
     ap.add_argument("--scenario", default=None,

@@ -50,7 +50,10 @@ class HistogramTrees:
     """H = depth-``depth`` axis trees over [0,1)^F on a ``bins``-bin
     grid, grown over the wire in one of three ``comm_mode``s: pooled
     coresets ("coreset"), merged per-player histograms ("histogram"),
-    or LightGBM-style parallel voting ("voting")."""
+    or LightGBM-style parallel voting ("voting").  ``chunk_size``
+    accumulates every histogram over point tiles of that many points
+    (the streaming tier; bitwise the monolithic histogram on dyadic
+    weights)."""
 
     num_features: int
     depth: int = 2
@@ -74,10 +77,9 @@ class HistogramTrees:
                 f"got {self.comm_mode!r}")
         if self.vote_topk < 1:
             raise ValueError(f"vote_topk must be ≥ 1, got {self.vote_topk}")
-        if self.chunk_size is not None:
-            raise NotImplementedError(
-                "chunked histograms (chunk_size) come with the streaming "
-                "slice, ROADMAP queue 1, item 10")
+        if self.chunk_size is not None and self.chunk_size < 1:
+            raise ValueError(
+                f"chunk_size must be ≥ 1, got {self.chunk_size}")
 
     # -- shape/bit accounting ---------------------------------------------
 
@@ -170,7 +172,8 @@ class HistogramTrees:
             wn = torch.where(onnode, w[..., None], 0.0).transpose(-1, -2)
             wyn = torch.where(onnode, wy[..., None], 0.0).transpose(-1, -2)
             f_n, q_n, _ = H.best_node_splits(xs, wn.contiguous(),
-                                             wyn.contiguous(), self.bins)
+                                             wyn.contiguous(), self.bins,
+                                             chunk_size=self.chunk_size)
             feats.append(f_n)
             qbins.append(q_n)
             xv = torch.gather(b, -1, torch.gather(f_n, -1, route)[..., None])
@@ -213,7 +216,8 @@ class HistogramTrees:
             wn = torch.where(onnode, w[..., None], 0.0).transpose(-1, -2)
             wyn = torch.where(onnode, wy[..., None], 0.0).transpose(-1, -2)
             hw, hwy = H.node_histograms(cx, wn.contiguous(),
-                                        wyn.contiguous(), self.bins)
+                                        wyn.contiguous(), self.bins,
+                                        chunk_size=self.chunk_size)
             if self.comm_mode == "voting":
                 _, err_f = H.best_splits_per_feature(hw, hwy)  # [B,kp,N,F]
                 prop = torch.argsort(err_f, dim=-1,

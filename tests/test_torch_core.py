@@ -217,15 +217,26 @@ def test_weights_within_stated_tolerance():
         np.asarray(j_weights.update_hits(hits, alive, alive)))
 
 
-def test_slice_boundaries_raise_with_their_queue_item():
-    x = torch.zeros((1, 1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        streaming.sort_order(x, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        HistogramTrees(num_features=4, chunk_size=4)
-    # the engines reach the same boundary through BoostConfig.chunk_size
-    with pytest.raises(NotImplementedError, match="item 10"):
-        batched.run_accurately_classify_batched(
-            x, torch.ones((1, 1, 8), dtype=torch.int8), prng.key(0),
-            BoostConfig(k=1, coreset_size=4, chunk_size=4),
-            weak.Thresholds(n=64), device="cpu")
+def test_slice_boundaries_raise_with_their_queue_item(monkeypatch):
+    """Item 10 (the streaming tier) is ported: the three places that
+    refused ``chunk_size`` now run it and equal the monolithic path,
+    the engine through ``BoostConfig.chunk_size`` included.  What is
+    still at a boundary raises with its queue item."""
+    x = torch.tensor([[[5, 1, 7, 1, 0, 3, 3, 6]]], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        streaming.sort_order(x, chunk_size=4).numpy(),
+        torch.argsort(x, dim=-1, stable=True).numpy())
+    assert HistogramTrees(num_features=4, chunk_size=4).chunk_size == 4
+    y = torch.tensor([[[1, -1, 1, -1, -1, 1, 1, 1]]], dtype=torch.int8)
+    runs = [batched.run_accurately_classify_batched(
+        x, y, prng.key(0)[None], BoostConfig(k=1, coreset_size=4,
+                                             chunk_size=chunk),
+        weak.Thresholds(n=64), device="cpu") for chunk in (4, None)]
+    for f in ("hypotheses", "rounds", "ok", "attempts", "disputed"):
+        np.testing.assert_array_equal(getattr(runs[0], f),
+                                      getattr(runs[1], f), f)
+    from repro_torch.launch import serve
+    monkeypatch.setattr("sys.argv", ["serve", "--workload", "serve-stream",
+                                     "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 13"):
+        serve.main()

@@ -1,12 +1,12 @@
 """The port's hand-written kernels against their plain versions on the
-card: mw_update and the histogram bit for bit, the stump contraction
+card: mw_update and the histogram (its chunked route too) bit for bit, the stump contraction
 bit for bit on ±1 and dyadic weights and within rtol 1e-5 plus atol
 1e-6·Σ|wy| on float weights, flash attention at the reference's
 tolerances (2e-5 in float32 on its CUDA-core route, 2e-2 in bf16 on its
 wgmma route, where the inputs and the output are bf16 and the kernel
 sums in another order), and within 1e-4 on rows built so that P's
 rounding would show (the wgmma route keeps P at float32 precision, as
-the reference does).  Every test here needs a CUDA device and skips on
+the reference does); and the streaming tier's pinned chunk feed.  Every test here needs a CUDA device and skips on
 a host without one; the file imports no JAX, so it runs where only the
 port is installed:
 
@@ -112,6 +112,95 @@ def test_histogram_kernel_edges_and_routes(card, shape, one_bin):
     if hist_ref.xla_cpu_block(c, N) < c:
         rows = hist_ref.node_histograms_ref(x, w, wy, Q, c)
         assert not (torch.equal(rows[0], rw) and torch.equal(rows[1], rwy))
+
+
+# G, N, c, F, Q, tile: a tile edge (c a multiple of the tile), ragged
+# last tiles (one point, and 1000 = 7·128 + 104), tiles of 400 and 800
+# points with two nodes (two and four k-blocks a tile), the tree run's
+# pooled coreset (400 points in tiles of 128), and tiles past the sort
+# route's shared memory (16384 points at N = 4: 590 KB of column state)
+CHUNK_SHAPES = [(2, 2, 512, 8, 32, 128), (3, 1, 257, 5, 16, 64),
+                (2, 2, 1000, 3, 8, 128), (2, 2, 2000, 4, 32, 400),
+                (1, 2, 4000, 3, 32, 800), (16, 2, 400, 8, 32, 128),
+                (1, 4, 50_000, 8, 32, 1 << 14)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHUNK_SHAPES, ids=str)
+def test_chunked_histogram_matches_plain_version(card, shape):
+    """The "chunked" route against its plain version, one call of two
+    launches counted on its route; on dyadic weights also against the
+    monolithic kernel."""
+    G, N, c, F, Q, tile = shape
+    x, w, wy = _hist_case(card, G, N, c, F, Q, seed=c + tile)
+    before, routes = hist_ops.launches, dict(hist_ops.route_launches)
+    kw, kwy = hist_ops.node_histograms(x, w, wy, Q, chunk_size=tile)
+    torch.cuda.synchronize()
+    assert hist_ops.launches == before + 1
+    assert {r: n - routes[r] for r, n in hist_ops.route_launches.items()} \
+        == {r: int(r == "chunked") for r in hist_kernel.ROUTES}
+    rw, rwy = hist_ops.node_histograms(x, w, wy, Q, interpret=True,
+                                       chunk_size=tile)
+    assert torch.equal(kw, rw) and torch.equal(kwy, rwy)
+    dw = torch.floor(w * (c * 256)) / 256        # 8-bit dyadic in [0, 1)
+    dwy = torch.where(wy < 0, -dw, dw)
+    a = hist_ops.node_histograms(x, dw, dwy, Q, chunk_size=tile)
+    b = hist_ops.node_histograms(x, dw, dwy, Q, interpret=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if c <= hist_kernel.MAX_SORT_POINTS:
+        m = hist_ops.node_histograms(x, dw, dwy, Q)
+        assert torch.equal(a[0], m[0]) and torch.equal(a[1], m[1])
+
+
+@pytest.mark.cuda
+def test_chunked_histogram_folds_negative_zero_tiles(card):
+    """A tile whose sums are all −0.0 (weights −0.0) folds into +0.0, and
+    so do the padded rows of the ragged last tile."""
+    x, w, _ = _hist_case(card, 2, 2, 300, 4, 16, seed=3)
+    w = torch.full_like(w, -0.0)
+    w[:, 1, 150:170] = -0.125
+    kw, kwy = hist_ops.node_histograms(x, w, -w, 16, chunk_size=128)
+    rw, rwy = hist_ops.node_histograms(x, w, -w, 16, interpret=True,
+                                       chunk_size=128)
+    torch.cuda.synchronize()
+    for k, r in ((kw, rw), (kwy, rwy)):
+        assert torch.equal(k.view(torch.int32), r.view(torch.int32))
+    assert not torch.signbit(kw[:, 0]).any()
+
+
+@pytest.mark.cuda
+def test_chunked_histogram_same_bits_over_50_launches(card):
+    x, w, wy = _hist_case(card, 4, 4, 20_000, 8, 32, seed=7)
+    first = hist_ops.node_histograms(x, w, wy, 32, chunk_size=4096)
+    for _ in range(50):
+        again = hist_ops.node_histograms(x, w, wy, 32, chunk_size=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_to_device_equals_its_input(card, depth):
+    """The pinned double buffer on the card: tiles in order, equal to
+    their host slices, on the card, the consumer reading each while the
+    next copies are in flight."""
+    import numpy as np
+    from repro_torch.data import chunks
+
+    rng = np.random.default_rng(depth)
+    x = rng.integers(0, 1 << 16, 100_003).astype(np.int32)
+    w = rng.random(100_003).astype(np.float32)
+    got = []
+    for xt, wt, start in chunks.prefetch_to_device(
+            chunks.iter_chunks((x, w), 8192), depth=depth):
+        assert xt.device.type == "cuda" and wt.device.type == "cuda"
+        got.append((start, (xt.long() * 2).cpu(), (wt + 0.0).cpu()))
+    assert [s for s, _, _ in got] == list(range(0, 100_003, 8192))
+    np.testing.assert_array_equal(
+        torch.cat([t for _, t, _ in got]).numpy(), x.astype(np.int64) * 2)
+    np.testing.assert_array_equal(
+        torch.cat([t for _, _, t in got]).numpy(), w)
 
 
 @pytest.mark.cuda

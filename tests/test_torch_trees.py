@@ -116,8 +116,11 @@ def test_tree_class_surface_equals_jax():
                 dict(vote_topk=0)):
         with pytest.raises(ValueError):
             HistogramTrees(num_features=4, **bad)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        HistogramTrees(num_features=4, chunk_size=64)
+    # chunk_size (the streaming tier) accumulates over tiles; 0 tiles
+    # are refused
+    assert HistogramTrees(num_features=4, chunk_size=64).chunk_size == 64
+    with pytest.raises(ValueError):
+        HistogramTrees(num_features=4, chunk_size=0)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
