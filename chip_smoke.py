@@ -50,6 +50,21 @@ UTMALDG), and drives the port's paths through
   quantile sketch of 10^6 points fed through pinned host memory and a
   copy stream, held to measured error ≤ its bound ≤ 1/100 and to the
   CPU's sketch;
+* the scheduler (``serve --workload serve-stream``) — 48 thresholds
+  requests of m = 2^17, 2^18 and 2^19 (the last under the ``drift``
+  adversary) in buckets of B ∈ {1, 4, 8}, every request ok with no
+  program built after the warmup and one request of each shape equal
+  to its ``one_shot`` run bit for bit; its first 16 requests with
+  dispatch 0 preempted to a checkpoint after 30 rounds and its resume
+  after 10 more, every completion equal to the unpreempted stream's
+  and no checkpoint left; the sharded engine's stream (one NCCL rank,
+  m = 2^16) with its ledger validated on every ok lane and its
+  ``--trace-out``/``--metrics-out`` files read back; a tree stream
+  (m = 2^12) with one preemption, every histogram launch on the
+  ``sort`` route; and ``trace_rounds`` on the thresholds slice, its
+  traced bits equal to every task's ledger, timed against the untraced
+  run, and a ``device_trace`` of two rounds with the mw_update kernel
+  inside the ``run_rounds`` region;
 
 each with every kernel's launch count set to 0 just before and read
 just after.  Then the card's protocol outputs are checked against the
@@ -78,6 +93,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -160,6 +176,27 @@ HIST_STREAM = dict(N=4, c=10 ** 6, F=8, Q=32, tile=1 << 14)
 SKETCH = dict(m=10 ** 6, n=1 << 16, hmax=13, tile=1 << 14, cap=1 << 15,
               c=1024)
 EPS_APPROX = 1.0 / 100.0           # the paper's ε (core/types.py)
+# the scheduler (serve --workload serve-stream): the thresholds slice's
+# track at serving scale, 48 requests of m = 2^17, 2^18 and 2^19 (the
+# last with the drift adversary) in buckets of mloc 2^15, 2^16 and 2^17
+# at B in {1, 4, 8}, a bursty trace, the fill policy
+STREAM_ARGS = ["--workload", "serve-stream", "--m", str(1 << 18), "--k",
+               "4", "--noise", "8", "--domain", "65536", "--coreset", "100",
+               "--opt-budget", "16", "--requests", "48", "--trace",
+               "bursty", "--rate", "100", "--burst", "8", "--policy",
+               "fill", "--scenario", "drift", "--device", "cuda"]
+# its first 16 requests, dispatch 0 cut after 30 rounds and its resume
+# cut again after 10 (an incremental chain)
+PREEMPT_STREAM_ARGS = with_flags(STREAM_ARGS, requests=16) + [
+    "--preempt", "0:30", "--preempt", "1:10"]
+# the sharded engine's stream over one NCCL rank, m cut to 2^16
+SHARD_STREAM_ARGS = with_flags(STREAM_ARGS, m=1 << 16, requests=16) + SHARD
+# a tree stream, m cut to 2^12 for time (the Gumbel draw dominates a
+# tree step), 8 requests, dispatch 0 preempted after 5 rounds
+TREE_STREAM_ARGS = with_flags(STREAM_ARGS, m=1 << 12, requests=8,
+                              noise=2) + [
+    "--cls", "tree", "--features", "8", "--tree-depth", "2",
+    "--tree-bins", "32", "--preempt", "0:5"]
 # stump cases, (B or None for the unbatched form, c, F, Q, kind): the
 # reference's (tests/test_kernels.py: sweep, block edges, all-negative
 # weights, duplicated thresholds, batched grid), then a ragged shape;
@@ -1272,6 +1309,324 @@ def phase_sketch(streaming, chunks, approximation) -> dict:
             "peak_bytes": peak, "mono_s": mono_wall, "mono_peak": mono_peak}
 
 
+def lane_outputs(res, b: int) -> dict:
+    """Lane b's protocol outputs as the scheduler's parity bar holds
+    them: ok, attempts, rounds, the hypotheses buffer, the disputed
+    mask, the stuck history and every ledger field."""
+    return {"ok": bool(res.ok[b]), "attempts": int(res.attempts[b]),
+            "rounds": int(res.rounds[b]),
+            "hypotheses": res.hypotheses[b].tobytes(),
+            "disputed": res.disputed[b].tobytes(),
+            "stuck": res.hist_stuck[b].tobytes(),
+            "ledger": dataclasses.asdict(res.ledger(b))}
+
+
+def drive_stream(serve, argv, name, ckpt_dir=None):
+    """One serve-stream run through the serve entry point, every
+    kernel's count set to 0 just before the stream (after the warmup,
+    which launches nothing) and read just after; checks the counts
+    against the JSON's, one mw_update launch per engine step of every
+    dispatch, every request served and no program built after the
+    warmup.  Returns (serve JSON, completions, scheduler, launches); the
+    caller closes the scheduler."""
+    argv = list(argv) + ([] if ckpt_dir is None else ["--ckpt-dir",
+                                                      ckpt_dir])
+    args = serve.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    out, done, sched = serve.run_serve_stream(args)
+    total_s = time.perf_counter() - t0
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    log(f"{name}:", json.dumps(out))
+    check(launches == {**out["kernel_launches"], "stump": 0,
+                       "flash_attention": 0},
+          f"{name}: launch counts {launches} != {out['kernel_launches']}")
+    results = {id(c.result): c.result for c in done}.values()
+    steps = sum(r.steps for r in results)
+    # ms per engine step of the dispatches that ran whole (a resumed
+    # one's service time is its resume's only)
+    whole = {id(c.result): (c.service_s, c.result.steps) for c in done
+             if not c.resumed}.values()
+    step_ms = 1e3 * sum(t for t, _ in whole) / max(sum(n for _, n in whole),
+                                                   1)
+    check(launches["mw_update"] == steps > 0,
+          f"{name}: mw_update launches {launches['mw_update']} != the "
+          f"dispatches' {steps} engine steps")
+    check(out["served"] == out["requests"] == len(done),
+          f"{name}: served {out['served']} of {out['requests']}")
+    check(out["steady_compiles"] == 0,
+          f"{name}: {out['steady_compiles']} programs built after warmup")
+    log(f"{name}: ok {out['ok']} of {out['requests']}, tasks_per_s "
+        f"{out['tasks_per_s']}, p50 {out['p50_latency_s']} s, p99 "
+        f"{out['p99_latency_s']} s, dispatches {out['dispatches']} "
+        f"({len(results)} results, {steps} steps), cache hits "
+        f"{out['cache_hits']} builds {out['cache_compiles']} (steady "
+        f"{out['steady_compiles']}), filler lanes {out['filler_lanes']}, "
+        f"ms/step of the whole dispatches {step_ms:.2f}, "
+        f"run_serve_stream {total_s:.2f} s in all, launches {launches}")
+    for bk, v in out["buckets"].items():
+        log(f"{name} bucket {bk}: {json.dumps(v)}")
+    return out, done, sched, launches
+
+
+def hold_to_one_shot(sched, done, name, per_shape: int = 1) -> None:
+    """The first ``per_shape`` completions of each request shape held to
+    ``one_shot`` (B = 1, the same bucket) bit for bit."""
+    seen: dict = {}
+    for c in done:
+        if seen.get(c.request.m, 0) >= per_shape:
+            continue
+        seen[c.request.m] = seen.get(c.request.m, 0) + 1
+        one = sched.one_shot(c.request)
+        got, want = lane_outputs(c.result, c.lane), lane_outputs(one, 0)
+        check(got == want, f"{name}: request {c.request.rid} (m = "
+              f"{c.request.m}, B = {c.bucket.B}) differs from one_shot in "
+              f"{[k for k in got if got[k] != want[k]]}")
+        log(f"{name}: request {c.request.rid} (m = {c.request.m}, lane "
+            f"{c.lane} of B = {c.bucket.B}{', resumed' if c.resumed else ''}"
+            f") equal to one_shot bit for bit ({want['attempts']} "
+            f"attempts, {want['rounds']} rounds)")
+
+
+def phase_serve_stream(serve) -> tuple[dict, dict]:
+    """The scheduler at the thresholds slice's serving scale: every
+    request ok, no build after the warmup, one request of each shape
+    held to ``one_shot``.  Returns ({rid: lane outputs}, launches)."""
+    out, done, sched, launches = drive_stream(serve, STREAM_ARGS,
+                                              "serve-stream")
+    try:
+        check(out["ok"] == out["requests"],
+              f"serve-stream: ok {out['ok']} of {out['requests']}")
+        hold_to_one_shot(sched, done, "serve-stream")
+    finally:
+        sched.close()
+    return {c.request.rid: lane_outputs(c.result, c.lane)
+            for c in done}, launches
+
+
+def phase_serve_stream_preempted(serve, obs_trace, obs_metrics,
+                                 ref) -> dict:
+    """The first 16 requests of the stream, dispatch 0 preempted after
+    30 rounds and its resume after 10 more: every completion equal to
+    the unpreempted stream's of the same request id, two preemptions
+    and two resumes, the checkpoint directory empty at the end; reports
+    the checkpoint timings and the snapshots' bytes.  Returns the
+    launches."""
+    reg = obs_metrics.reset_default_registry()
+    with tempfile.TemporaryDirectory() as ckpt, \
+            obs_trace.recording() as rec:
+        out, done, sched, launches = drive_stream(
+            serve, PREEMPT_STREAM_ARGS, "preempted stream", ckpt)
+        sched.close()
+        left = os.listdir(ckpt)
+    check((out["preemptions"], out["resumes"]) == (2, 2),
+          f"preempted stream: {out['preemptions']} preemptions, "
+          f"{out['resumes']} resumes")
+    check(left == [], f"preempted stream: checkpoints left: {left}")
+    check(sum(c.resumed for c in done) >= 1, "preempted stream: no "
+          "completion came through a resume")
+    for c in done:
+        got = lane_outputs(c.result, c.lane)
+        want = ref[c.request.rid]
+        check(got == want, f"preempted stream: request {c.request.rid} "
+              f"differs from the unpreempted stream's in "
+              f"{[k for k in got if got[k] != want[k]]}")
+    writes = [e["args"] for e in rec.events if e["name"] == "ckpt_write"]
+    full = [a["bytes"] for a in writes if a["full"]]
+    incr = [a["bytes"] for a in writes if not a["full"]]
+    check(len(full) == len(incr) == 1 and incr[0] < full[0],
+          f"preempted stream: snapshot bytes full {full}, incremental "
+          f"{incr}")
+    m = reg.to_dict()
+    log(f"preempted stream: {len(done)} completions equal to the "
+        f"unpreempted stream's, {sum(c.resumed for c in done)} through a "
+        f"resume; snapshot bytes full {full[0]}, incremental {incr[0]} "
+        f"({incr[0] / full[0]:.4f}); ckpt.save_s sum "
+        f"{m['ckpt.save_s']['sum']:.4f} s over {m['ckpt.save_s']['count']}"
+        f" saves, ckpt.restore_s sum {m['ckpt.restore_s']['sum']:.4f} s "
+        f"over {m['ckpt.restore_s']['count']} restores")
+    return launches
+
+
+def phase_serve_stream_sharded(serve) -> dict:
+    """The stream over the sharded engine's one NCCL rank, with
+    ``--trace-out`` and ``--metrics-out``: the ledger validated on every
+    ok lane, no build after the warmup, the trace Chrome JSON with the
+    dispatch, compile, run_rounds and finalize spans, the metrics the
+    scheduler's and its cache's.  Returns the launches."""
+    with tempfile.TemporaryDirectory() as d:
+        trace, metrics = os.path.join(d, "t.json"), os.path.join(d, "m.json")
+        args = serve.build_parser().parse_args(
+            SHARD_STREAM_ARGS + ["--trace-out", trace, "--metrics-out",
+                                 metrics])
+        for _, ops in serve.KERNELS.values():
+            ops.launches = 0
+        out = serve.run_workload(args)
+        launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+        with open(trace, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        with open(metrics, encoding="utf-8") as f:
+            names = set(json.load(f))
+    log("sharded stream:", json.dumps(out))
+    check(launches == {**out["kernel_launches"], "stump": 0,
+                       "flash_attention": 0} and launches["mw_update"] > 0,
+          f"sharded stream: launches {launches}, JSON "
+          f"{out['kernel_launches']}")
+    check(out["ledger_validated"] == out["ok"] > 0,
+          f"sharded stream: ledger_validated {out['ledger_validated']} of "
+          f"{out['ok']} ok")
+    check(out["steady_compiles"] == 0 and out["served"] == 16,
+          f"sharded stream: steady builds {out['steady_compiles']}, served "
+          f"{out['served']}")
+    spans = {e["name"] for e in events if e.get("ph") == "X"}
+    dispatch_ms = sum(e["dur"] for e in events
+                      if e["name"] == "dispatch") / 1e3
+    check({"dispatch", "compile", "run_rounds", "finalize"} <= spans,
+          f"sharded stream: trace spans {sorted(spans)}")
+    want = {"scheduler.dispatches", "scheduler.served",
+            "scheduler.compile_cache.hits",
+            "scheduler.compile_cache.compiles"}
+    check(want <= names, f"sharded stream: metrics {sorted(names)}")
+    log(f"sharded stream: ok {out['ok']} of 16, ledger_validated "
+        f"{out['ledger_validated']}, tasks_per_s {out['tasks_per_s']}, p50 "
+        f"{out['p50_latency_s']} s, p99 {out['p99_latency_s']} s, ms/step "
+        f"of the dispatches {dispatch_ms / launches['mw_update']:.2f} "
+        f"(the trace's dispatch spans over the mw_update launches); trace "
+        f"{len(events)} events, spans {sorted(spans)}; {len(names)} "
+        f"metrics")
+    for bk, v in out["buckets"].items():
+        log(f"sharded stream bucket {bk}: {json.dumps(v)}")
+    return launches
+
+
+def phase_serve_stream_tree(serve, hist_ops, depth) -> tuple[dict, dict]:
+    """A tree stream with one preemption: every histogram launch of
+    every dispatch (the resumed one included) on the kernel's "sort"
+    route, two completions held to ``one_shot``.  Returns (launches,
+    routes)."""
+    hist_ops.route_launches = dict.fromkeys(hist_ops.route_launches, 0)
+    with tempfile.TemporaryDirectory() as ckpt:
+        out, done, sched, launches = drive_stream(
+            serve, TREE_STREAM_ARGS, "tree stream", ckpt)
+        routes = dict(hist_ops.route_launches)
+        try:
+            check((out["preemptions"], out["resumes"]) == (1, 1),
+                  f"tree stream: {out['preemptions']} preemptions, "
+                  f"{out['resumes']} resumes")
+            steps = sum({id(c.result): c.result.steps
+                         for c in done}.values())
+            check(launches["histogram"] == depth * steps
+                  and routes == {"sort": launches["histogram"], "tiled": 0,
+                                 "chunked": 0},
+                  f"tree stream: histogram launches "
+                  f"{launches['histogram']}, routes {routes}, {steps} "
+                  f"steps")
+            resumed = [c for c in done if c.resumed]
+            picks = resumed[:1] + [c for c in done if not c.resumed][:1]
+            hold_to_one_shot(sched, picks, "tree stream", per_shape=2)
+        finally:
+            sched.close()
+    log(f"tree stream: histogram routes {routes}")
+    return launches, routes
+
+
+def device_trace_frames_kernel(doc: dict, region: str, kernel: str,
+                               count: int) -> None:
+    """The profiler's Chrome trace holds ``count`` launches of a kernel
+    whose name holds ``kernel``, each inside a ``region`` range: its
+    launch call inside the host range (matched by the trace's
+    correlation ids), or the kernel inside the region's device range."""
+    evs = doc["traceEvents"]
+    regions = [e for e in evs if e.get("name") == region
+               and e.get("ph") == "X"]
+    host = [e for e in regions if e.get("cat") != "gpu_user_annotation"]
+    dev = [e for e in regions if e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and kernel in e.get("name", "")]
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in (e.get("args") or {})}
+
+    def inside(t, spans):
+        return any(r["ts"] <= t <= r["ts"] + r["dur"] for r in spans)
+
+    check(host and len(kernels) == count,
+          f"device trace: {len(host)} {region} ranges, {len(kernels)} "
+          f"{kernel} kernels (want {count})")
+    for k in kernels:
+        call = calls.get((k.get("args") or {}).get("correlation"))
+        check((call is not None and inside(call["ts"], host))
+              or inside(k["ts"], dev),
+              f"device trace: {kernel} kernel at {k['ts']} is not inside "
+              f"a {region} range")
+
+
+def phase_traced_rounds(serve, batched, prng, tasks, roundtrace,
+                        obs_trace) -> dict:
+    """``trace_rounds`` on the thresholds slice (B = 16, m = 2^20): the
+    traced wire bits equal every task's ledger bit for bit and the run
+    equals the untraced one; ms per step with the recorder against
+    without, in the same call; then a ``device_trace`` of two rounds
+    whose profiler events hold the mw_update kernel inside the
+    ``run_rounds`` region.  Returns the traced run's launches."""
+    args = serve.build_parser().parse_args(SLICE_ARGS)
+    cls = serve.make_class(args)
+    cfg = serve.make_config(args, cls)
+    x, y, _ = tasks.make_batch(cls, args.batch, args.m, args.k, args.noise,
+                               seed0=args.seed)
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    keys = prng.split(prng.key(args.seed, device="cuda"), args.batch)
+    alive0 = np.ones(tuple(x.shape), bool)
+
+    def fresh():
+        return batched.init_state(x, y, keys, cfg, cls=cls, device="cuda")
+
+    s = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = batched.run_rounds(s, x, y, cfg, cls)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_steps = int(s.step.max())
+    plain = batched.finalize(s, x, y, alive0, cfg, cls, steps=plain_steps)
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+    rec = obs_trace.TraceRecorder()
+    s = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs_trace.recording(rec):
+        s = roundtrace.trace_rounds(
+            lambda st: batched.run_rounds(st, x, y, cfg, cls, n=1), s, cfg,
+            cls, recorder=rec)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+    traced = batched.finalize(s, x, y, alive0, cfg, cls,
+                              steps=int(s.step.max()))
+    check(launches["mw_update"] == traced.steps == plain_steps,
+          f"traced rounds: {launches['mw_update']} mw_update launches, "
+          f"{traced.steps} steps, untraced {plain_steps}")
+    assert_same_protocol(plain, traced, "traced rounds")
+    report = roundtrace.validate_trace(
+        rec, {b: traced.ledger(b) for b in range(args.batch)})
+    rounds = sum(1 for e in rec.events if e["name"] == "round")
+    log(f"traced rounds: validate_trace passed on {len(report)} tasks "
+        f"({rounds} round spans, {len(rec.events)} events); ms/step traced "
+        f"{traced_s * 1e3 / traced.steps:.2f} vs untraced "
+        f"{plain_s * 1e3 / plain_steps:.2f} ({plain_steps} steps)")
+    s = fresh()
+    with tempfile.TemporaryDirectory() as d:
+        with obs_trace.recording(), obs_trace.device_trace(d):
+            for _ in range(2):
+                s = batched.run_rounds(s, x, y, cfg, cls, n=1)
+        with open(os.path.join(d, "trace.json"), encoding="utf-8") as f:
+            doc = json.load(f)
+    device_trace_frames_kernel(doc, "run_rounds", "mw_update", 2)
+    log("traced rounds: the device trace holds 2 mw_update kernels, each "
+        "inside a run_rounds region")
+    return launches
+
+
 def flash_inputs(B, S, H, KV, hd, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -1598,6 +1953,9 @@ def main() -> int:
     from repro_torch.kernels.stump import kernel as stump_kernel
     from repro_torch.kernels.stump import ops as stump_ops
     from repro_torch.launch import serve
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import roundtrace
+    from repro_torch.obs import trace as obs_trace
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -1739,14 +2097,29 @@ def main() -> int:
     entries["histogram"]["paths"]["chunked_tree"] = {
         "route_launches": ctree_routes}
     phase("sketch", phase_sketch, streaming, chunks, approximation)
-    # 10. card against CPU
+    # 10. the scheduler: the stream, the same stream preempted to a
+    # checkpoint and resumed, the sharded engine's stream with its
+    # trace and metrics, a tree stream; the traced rounds
+    stream_ref, stream_launches = phase("serve-stream", phase_serve_stream,
+                                        serve)
+    pre_launches = phase("preempted stream", phase_serve_stream_preempted,
+                         serve, obs_trace, obs_metrics, stream_ref)
+    sstream_launches = phase("sharded stream", phase_serve_stream_sharded,
+                             serve)
+    tstream_launches, tstream_routes = phase(
+        "tree stream", phase_serve_stream_tree, serve, hist_ops, depth)
+    entries["histogram"]["paths"]["serve_stream_tree"] = {
+        "route_launches": tstream_routes}
+    traced_launches = phase("traced rounds", phase_traced_rounds, serve,
+                            batched, prng, tasks, roundtrace, obs_trace)
+    # 11. card against CPU
     phase("card vs cpu", phase_card_vs_cpu, batched, prng, tasks, weak)
     phase("sharded card vs cpu", phase_sharded_card_vs_cpu,
           sharded_batched, prng, tasks, weak)
     phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
           flash_ops)
-    # 11. results: each kernel's top-level launches are its own main
+    # 12. results: each kernel's top-level launches are its own main
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``
@@ -1759,7 +2132,12 @@ def main() -> int:
             "sharded_dropout": sdrop_launches, "host_loop": host_launches,
             "chunked_thresholds": chunk_launches,
             "sharded_chunked_thresholds": schunk_launches,
-            "chunked_tree": ctree_launches}
+            "chunked_tree": ctree_launches,
+            "serve_stream": stream_launches,
+            "serve_stream_preempted": pre_launches,
+            "serve_stream_sharded": sstream_launches,
+            "serve_stream_tree": tstream_launches,
+            "traced_rounds": traced_launches}
     for name, entry in entries.items():
         entry["launches"] = runs[entry["path"]][name]
         for path, counts in runs.items():

@@ -42,11 +42,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.ckpt import msgpack_ckpt
 from repro_torch.core import boost_attempt, classify, fp32, prng, weak
 from repro_torch.core import ledger as L
 from repro_torch.core import weights as W
 from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 class StepState(NamedTuple):
     """Whole-protocol state of B tasks; every field has a leading
@@ -97,6 +99,50 @@ STATE_DTYPES = {
 }
 KEY_FIELDS = ("key_data", "akey_data")
 PORT_FIELDS = ("wsum", "wsum_shift")
+
+# -- checkpoint identity of the stepping state ------------------------------
+# Leaf names are the StepState field names and the dtypes those of
+# STATE_DTYPES, the key words uint32 on disk as in the reference's
+# files.  core_x/core_y follow the task data's dtype and restore as
+# saved.  The reference's own checkpoints (treedef
+# "repro.core.batched.StepState") carry no wsum/wsum_shift: read them
+# with ``msgpack_ckpt.load_pytree(path)`` and ``convert.from_jax``.
+
+STATE_TREEDEF = "repro_torch.core.batched.StepState"
+
+
+def check_state_dtypes(leaves: dict, dtypes: dict, what: str) -> None:
+    """Refuse a restored leaf whose dtype drifted from the engine's
+    declared layout (both engines' reconstructors)."""
+    for name, want in dtypes.items():
+        got = np.asarray(leaves[name]).dtype
+        if got != np.dtype(want):
+            raise ValueError(
+                f"checkpoint leaf {name!r} of {what} has dtype {got} "
+                f"but the engine expects {want} — refusing a silent "
+                f"cast (bit-parity would break invisibly)")
+
+
+def state_leaf_tensor(name: str, arr: np.ndarray, device) -> torch.Tensor:
+    """One checked host leaf as the engine's tensor on ``device`` (key
+    words widened from uint32 to the int64 the port computes in)."""
+    if name in KEY_FIELDS:
+        arr = arr.astype(np.int64)
+    return torch.from_numpy(arr).to(device)
+
+
+def _unflatten_state(leaves: dict, device) -> "StepState":
+    missing = set(StepState._fields) - set(leaves)
+    if missing:
+        raise KeyError(f"checkpoint missing StepState leaves: "
+                       f"{sorted(missing)}")
+    check_state_dtypes(leaves, STATE_DTYPES, "batched.StepState")
+    return StepState(**{f: state_leaf_tensor(f, leaves[f], device)
+                        for f in StepState._fields})
+
+
+msgpack_ckpt.register_treedef(STATE_TREEDEF, _unflatten_state,
+                              dict.fromkeys(KEY_FIELDS, "uint32"))
 
 
 def num_rounds_dynamic(cfg: BoostConfig, m_alive: torch.Tensor) -> torch.Tensor:
@@ -340,7 +386,12 @@ def run_rounds(state: StepState, x, y, cfg: BoostConfig, cls,
     x, y = as_tensor(x, dev), as_tensor(y, dev)
     B, k = x.shape[:2]
     sched = canon_player_sched(player_sched, B, k, device=dev)
-    return _run_steps(x, y, sched, state, n, cfg, cls)[0]
+    with obs_trace.span("run_rounds", "engine", engine="batched", B=B,
+                        n=-1 if n is None else int(n)), \
+            obs_trace.annotate("run_rounds"):
+        state = _run_steps(x, y, sched, state, n, cfg, cls)[0]
+        obs_trace.sync_if_tracing(dev)
+    return state
 
 
 @dataclasses.dataclass
@@ -433,7 +484,16 @@ def _host(v) -> np.ndarray:
 
 def finalize(state: StepState, x, y, alive0, cfg: BoostConfig, cls,
              m_true=None, steps: int = 0) -> BatchedClassifyResult:
-    """Copy stepped state to a host result (no protocol math here)."""
+    """Copy stepped state to a host result (no protocol math here),
+    under a ``finalize`` span."""
+    with obs_trace.span("finalize", "engine", engine="batched"):
+        return host_result(state, x, y, alive0, cfg, cls, m_true, steps)
+
+
+def host_result(state: StepState, x, y, alive0, cfg: BoostConfig, cls,
+                m_true=None, steps: int = 0) -> BatchedClassifyResult:
+    """:func:`finalize`'s copy, without its span (the sharded engine's
+    finalize spans its own)."""
     out = {f: _host(v) for f, v in state._asdict().items()}
     return BatchedClassifyResult(
         hypotheses=out["h_params"], rounds=out["rounds"],
@@ -449,10 +509,129 @@ def finalize(state: StepState, x, y, alive0, cfg: BoostConfig, cls,
         steps=steps)
 
 
+def stack_for_dispatch(items, B: int):
+    """Stack admitted (x, y, alive, key) tuples into bucket arrays.
+
+    ``items`` holds up to B tasks already padded to a common [k, mloc]
+    (numpy x, y, alive; ``key`` [2] words, a tensor or array); a short
+    batch is filled by copies of lane 0 (a live lane: dead filler would
+    spin through the whole opt_budget, and a batch is as slow as its
+    slowest lane).  Returns (x, y, alive, keys, n_real): numpy arrays,
+    keys an int64 [B, 2] CPU tensor; lanes ≥ n_real are filler, and
+    their results are discarded."""
+    n_real = len(items)
+    if not 0 < n_real <= B:
+        raise ValueError(f"need 1..{B} items, got {n_real}")
+    items = list(items) + [items[0]] * (B - n_real)
+    x = np.stack([it[0] for it in items])
+    y = np.stack([it[1] for it in items])
+    alive = np.stack([it[2] for it in items])
+    keys = torch.stack([prng.wrap_key_data(it[3]).cpu() for it in items])
+    return x, y, alive, keys, n_real
+
+
+def _dtype_name(v) -> str:
+    return str(v.dtype).removeprefix("torch.")
+
+
+def signature(x, y, cfg: BoostConfig, cls, device) -> tuple:
+    """What a bucket program is bound to: cfg, cls, the ensemble buffer
+    t_buf, x's shape [B, k, mloc(, F)] and y's, their dtypes, and the
+    device."""
+    return (cfg, cls, cfg.num_rounds(int(x.shape[1]) * int(x.shape[2])),
+            tuple(int(v) for v in x.shape), tuple(int(v) for v in y.shape),
+            _dtype_name(x), _dtype_name(y), resolve_device(device))
+
+
+class ClassifyProgram:
+    """The batched engine bound to one input signature (:func:`signature`),
+    the port's counterpart of the reference's AOT-compiled executable
+    (``repro.core.batched.lower_classify``).
+
+    Building it does the per-shape work once: the canonical all-alive
+    player schedule, the ensemble buffer size, and the round body's
+    kernels prepared (``boost_attempt.prepare_kernels``: the histogram
+    plans it holds; on the card the libraries loaded and the mw_update
+    workspace sized).
+    Calling it on any other signature raises, as a JAX ``Compiled``
+    does; dropping it drops what it holds.  ``builds`` counts the
+    programs built in this process (a serving cache's steady state
+    builds none).
+    """
+
+    builds = 0
+
+    def __init__(self, x, y, cfg: BoostConfig, cls, device=None,
+                 kloc: int | None = None):
+        self.signature = signature(x, y, cfg, cls, device)
+        if tuple(y.shape) != tuple(x.shape[:3]):
+            raise ValueError(f"y {tuple(y.shape)} does not fit x "
+                             f"{tuple(x.shape)}")
+        self.cfg, self.cls = cfg, cls
+        self.t_buf = self.signature[2]
+        B, k, mloc = self.signature[3][:3]
+        self.device = self.signature[-1]
+        self.sched = canon_player_sched(None, B, k, device=self.device)
+        # this process's players: all k here, a rank's kloc when sharded
+        self.hist_plans = boost_attempt.prepare_kernels(
+            cfg, cls, B, k if kloc is None else kloc, k, mloc, self.device)
+        ClassifyProgram.builds += 1
+
+    def check(self, x, y) -> None:
+        """Raise unless x and y fit this program's signature."""
+        got = signature(x, y, self.cfg, self.cls, self.device)
+        if got != self.signature:
+            raise ValueError(
+                f"a bucket program bound to x {self.signature[3]}, y "
+                f"{self.signature[4]}, dtypes {self.signature[5:7]} was "
+                f"called on x {got[3]}, y {got[4]}, dtypes {got[5:7]}")
+
+    def __call__(self, x, y, alive, keys, player_sched=None,
+                 m_true=None) -> "BatchedClassifyResult":
+        self.check(x, y)
+        B, k = self.signature[3][:2]
+        state = init_state(x, y, keys, self.cfg, alive=alive,
+                           t_buf=self.t_buf, cls=self.cls,
+                           device=self.device)
+        sched = (self.sched if player_sched is None else
+                 canon_player_sched(player_sched, B, k,
+                                    device=self.device))
+        return _run_to_end(x, y, alive, sched, state, self.cfg, self.cls,
+                           m_true)
+
+
+def lower_classify(x, y, alive, keys, cfg: BoostConfig, cls,
+                   device=None) -> ClassifyProgram:
+    """The bucket program of one input signature (the reference's
+    ``lower_classify``; ``alive`` and ``keys`` are taken for the
+    reference's call form and fix nothing here).  A ``compile`` span
+    covers the build."""
+    with obs_trace.span("compile", "compile", engine="batched",
+                        B=int(x.shape[0]), mloc=int(x.shape[2])):
+        return ClassifyProgram(x, y, cfg, cls, device=device)
+
+
+def _run_to_end(x, y, alive, sched, state: StepState, cfg: BoostConfig,
+                cls, m_true) -> "BatchedClassifyResult":
+    """Rounds to completion under a ``run_rounds`` span, then
+    :func:`finalize`."""
+    dev = state.hits.device
+    xt, yt = as_tensor(x, dev), as_tensor(y, dev)
+    with obs_trace.span("run_rounds", "engine", engine="batched",
+                        B=int(xt.shape[0]), n=-1), \
+            obs_trace.annotate("run_rounds"):
+        state, steps = _run_steps(xt, yt, sched, state, None, cfg, cls)
+        obs_trace.sync_if_tracing(dev)
+    alive0 = np.ones(tuple(xt.shape[:3]), bool) if alive is None else alive
+    return finalize(state, x, y, alive0, cfg, cls, m_true=m_true,
+                    steps=steps)
+
+
 def run_accurately_classify_batched(x, y, keys, cfg: BoostConfig, cls,
                                     alive=None, m_true=None,
-                                    player_sched=None,
-                                    device=None) -> BatchedClassifyResult:
+                                    player_sched=None, device=None,
+                                    compiled: ClassifyProgram | None = None,
+                                    ) -> BatchedClassifyResult:
     """B-task AccuratelyClassify to completion on ``device`` (default
     ``cuda``; raises when CUDA is absent unless ``device="cpu"``).
 
@@ -461,14 +640,21 @@ def run_accurately_classify_batched(x, y, keys, cfg: BoostConfig, cls,
     key words, or one key [2] to split into B (as the reference takes
     one key or B); ``alive`` optional initial mask; ``m_true`` optional [B]
     true sample sizes (padded buckets); ``player_sched`` an optional
-    player-alive schedule (see :func:`canon_player_sched`).
+    player-alive schedule (see :func:`canon_player_sched`);
+    ``compiled`` a :func:`lower_classify` program of this signature
+    (the serving cache passes it; any other signature raises), which
+    also fixes the device.
     """
+    if compiled is not None:
+        if (cfg, cls) != (compiled.cfg, compiled.cls):
+            raise ValueError("cfg or cls differs from the program's")
+        if device is not None and resolve_device(device) != compiled.device:
+            raise ValueError(f"device {device} is not the program's "
+                             f"{compiled.device}")
+        return compiled(x, y, alive, keys, player_sched=player_sched,
+                        m_true=m_true)
     state = init_state(x, y, keys, cfg, alive=alive, cls=cls, device=device)
     dev = state.hits.device
-    xt, yt = as_tensor(x, dev), as_tensor(y, dev)
-    sched = canon_player_sched(player_sched, xt.shape[0], xt.shape[1],
-                               device=dev)
-    state, steps = _run_steps(xt, yt, sched, state, None, cfg, cls)
-    alive0 = np.ones(tuple(xt.shape[:3]), bool) if alive is None else alive
-    return finalize(state, x, y, alive0, cfg, cls, m_true=m_true,
-                    steps=steps)
+    sched = canon_player_sched(player_sched, state.hits.shape[0],
+                               state.hits.shape[1], device=dev)
+    return _run_to_end(x, y, alive, sched, state, cfg, cls, m_true)

@@ -38,6 +38,7 @@ from repro_torch.core.pinned import pinned_argmax
 from repro_torch.core.types import BoostAttemptResult, BoostConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mw_update import ops as mw_ops
+from repro_torch.obs import trace as obs_trace
 
 
 class Wire:
@@ -219,6 +220,44 @@ def start_carry(x, y, alive, key, cfg: BoostConfig, cls, num_rounds: int,
         core_idx=torch.zeros((B, kloc, c), dtype=torch.int64, device=dev))
 
 
+def prepare_kernels(cfg: BoostConfig, cls, B: int, kloc: int, k: int,
+                    mloc: int, device: torch.device) -> dict:
+    """The per-shape work of the round body's kernels for one bucket of
+    B tasks (kloc of k players here, mloc examples each), done once
+    ahead of its runs: a tree class's histogram plans for every level
+    (``kernel.plan`` or ``chunk_plan``, memoized, so a launch on the
+    card finds its plan made; a shape the kernel does not take raises
+    here), and on the card the kernel libraries loaded and the
+    mw_update workspace sized for B·kloc rows on the current stream.
+    Returns the histogram plans, one per tree level (none for the
+    other classes)."""
+    from repro_torch.kernels.histogram import kernel as hist_kernel
+    from repro_torch.weak_tree import HistogramTrees
+
+    plans = ()
+    if isinstance(cls, HistogramTrees):
+        c = cfg.coreset_size
+        # the center's pooled coreset, or each player's (distributed)
+        G, pts = ((B, k * c) if cls.comm_mode == "coreset"
+                  else (B * kloc, c))
+        chunk = cls.chunk_size
+        plans = tuple(
+            hist_kernel.chunk_plan(G, pts, chunk, cls.bins)
+            if chunk is not None and chunk < pts else
+            hist_kernel.plan(G, 1 << level, pts, cls.num_features,
+                             cls.bins)
+            for level in range(cls.depth))
+    if device.type == "cuda":
+        from repro_torch.kernels.mw_update import kernel as mw_kernel
+
+        lib = mw_kernel.library()
+        mw_kernel.workspace(B * kloc, lib.mw_update_tiles(mloc), device,
+                            torch.cuda.current_stream(device))
+        if plans:
+            hist_kernel.library()
+    return plans
+
+
 def sorted_views(cfg: BoostConfig, x, y):
     """The loop-invariant per-player sort order of the quantile coreset
     and y in that order, hoisted out of the round loop (None, None on
@@ -277,8 +316,13 @@ def run_boost_attempt(x, y, alive, key, cfg: BoostConfig, cls,
     m = int(np.asarray(alive).sum()) if not torch.is_tensor(alive) \
         else int(alive.sum())
     num_rounds = cfg.num_rounds(max(m, 2))
-    out = boost_attempt_arrays(x, y, alive, None, key, cfg, cls, num_rounds,
-                               device=device)
+    with obs_trace.span("boost_attempt", "attempt", m_alive=m,
+                        bound=num_rounds) as sp, \
+            obs_trace.annotate("boost_attempt"):
+        out = boost_attempt_arrays(x, y, alive, None, key, cfg, cls,
+                                   num_rounds, device=device)
+        if obs_trace.enabled():
+            sp.update(rounds=int(out.t), stuck=bool(out.stuck))
     return BoostAttemptResult(
         stuck=bool(out.stuck), rounds=int(out.t),
         hypotheses=out.h_params.cpu().numpy(),

@@ -30,6 +30,7 @@ from repro_torch.core import boost_attempt, prng, weak
 from repro_torch.core import ledger as L
 from repro_torch.core.types import BoostConfig, ClassifyResult, Ledger
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 def _row_ids(pts: torch.Tensor, valid: torch.Tensor, x=None):
@@ -247,6 +248,21 @@ def make_classifier(cls, result) -> ResilientClassifier:
         dispute_pos=np.asarray(pos), dispute_neg=np.asarray(neg))
 
 
+def _emit_attempt(sp, att_led: Ledger, res, q_control: int,
+                  q_dispute: int) -> None:
+    """Annotate a host ``attempt`` span with its per-category wire bits
+    — the attempt's Theorem 4.1 ledger delta plus the quarantine
+    charges — in the ``task_bits`` format ``obs.roundtrace`` sums (one
+    task: everything lands on task 0)."""
+    bits = obs_trace.ledger_bits(att_led)
+    bits["control"] += q_control
+    bits["quarantine"] += q_dispute
+    sp.update(task_bits={"0": bits},
+              task_rounds={"0": res.rounds + (1 if res.stuck else 0)},
+              task_attempts={"0": 1},
+              rounds=res.rounds, stuck=res.stuck)
+
+
 def run_accurately_classify(x, y, key, cfg: BoostConfig, cls, alive=None,
                             device=None) -> ClassifyResult:
     """The host-driven outer loop (≤ opt_budget + 1 BoostAttempts) of
@@ -254,7 +270,9 @@ def run_accurately_classify(x, y, key, cfg: BoostConfig, cls, alive=None,
     rows, y [k, mloc] int8, ``key`` [2] words, ``alive`` an optional
     initial [k, mloc] mask.  Each attempt runs on ``device`` (default
     ``cuda``); quarantine and the ledger run on the host.  Raises when
-    OPT exceeds the budget, as the reference does."""
+    OPT exceeds the budget, as the reference does.  Under tracing, an
+    ``attempt`` span per attempt carries its wire bits and a
+    ``quarantine`` span covers each quarantine."""
     dev = resolve_device(device)
     x_np, y_np = _host(x), _host(y)
     k, mloc = x_np.shape[0], x_np.shape[1]
@@ -268,33 +286,45 @@ def run_accurately_classify(x, y, key, cfg: BoostConfig, cls, alive=None,
     result = None
     m_bits_m = max(int(np.ceil(np.log2(max(k * mloc, 2)))), 1)
     n = L.domain_size(cls)
-    for _ in range(cfg.opt_budget + 1):
-        halves = prng.split(key, 2)
-        key, sub = halves[0], halves[1]
-        m_alive = int(alive_np.sum())
-        res = boost_attempt.run_boost_attempt(
-            xt, yt, torch.from_numpy(alive_np).to(dev), sub, cfg, cls,
-            device=dev)
-        led = led + L.boost_attempt_ledger(cfg, cls, max(m_alive, 2),
-                                           res.rounds, res.stuck)
-        stuck_history.append(res.stuck)
-        if not res.stuck:
-            result = res
-            break
-        # ---- full-point quarantine of the non-realizable coreset
-        cx = res.coreset_x.reshape((-1,) + res.coreset_x.shape[2:])
-        pts = np.unique(cx, axis=0) if cx.ndim == 2 else np.unique(cx)
-        pos, neg = _point_counts(x_np, y_np, alive_np, pts)
-        # points with no alive copy carry no label evidence: they stay
-        # out of the D-table, but the broadcast charged them all
-        keep = (pos + neg) > 0
-        dis_pts.append(pts[keep])
-        dis_pos.append(pos[keep])
-        dis_neg.append(neg[keep])
-        alive_np = _kill_points(x_np, alive_np, pts)
-        P = int(pts.shape[0])
-        led.bits_control += cfg.k * P * L.point_bits(n)       # broadcast
-        led.bits_dispute += cfg.k * P * 2 * m_bits_m          # counts up
+    for attempt in range(cfg.opt_budget + 1):
+        with obs_trace.span("attempt", "protocol", engine="host",
+                            attempt=attempt) as att_sp:
+            halves = prng.split(key, 2)
+            key, sub = halves[0], halves[1]
+            m_alive = int(alive_np.sum())
+            res = boost_attempt.run_boost_attempt(
+                xt, yt, torch.from_numpy(alive_np).to(dev), sub, cfg, cls,
+                device=dev)
+            att_led = L.boost_attempt_ledger(cfg, cls, max(m_alive, 2),
+                                             res.rounds, res.stuck)
+            led = led + att_led
+            stuck_history.append(res.stuck)
+            if not res.stuck:
+                result = res
+                if obs_trace.enabled():
+                    _emit_attempt(att_sp, att_led, res, 0, 0)
+                break
+            # ---- full-point quarantine of the non-realizable coreset
+            with obs_trace.span("quarantine", "protocol", attempt=attempt):
+                cx = res.coreset_x.reshape((-1,) + res.coreset_x.shape[2:])
+                pts = (np.unique(cx, axis=0) if cx.ndim == 2
+                       else np.unique(cx))
+                pos, neg = _point_counts(x_np, y_np, alive_np, pts)
+                # points with no alive copy carry no label evidence:
+                # they stay out of the D-table, but the broadcast
+                # charged them all
+                keep = (pos + neg) > 0
+                dis_pts.append(pts[keep])
+                dis_pos.append(pos[keep])
+                dis_neg.append(neg[keep])
+                alive_np = _kill_points(x_np, alive_np, pts)
+                P = int(pts.shape[0])
+                q_control = cfg.k * P * L.point_bits(n)       # broadcast
+                q_dispute = cfg.k * P * 2 * m_bits_m          # counts up
+                led.bits_control += q_control
+                led.bits_dispute += q_dispute
+            if obs_trace.enabled():
+                _emit_attempt(att_sp, att_led, res, q_control, q_dispute)
     if result is None:
         raise RuntimeError(
             f"AccuratelyClassify exceeded opt_budget={cfg.opt_budget}; "

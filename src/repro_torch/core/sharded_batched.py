@@ -48,10 +48,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.ckpt import msgpack_ckpt
 from repro_torch.core import batched, boost_attempt, prng
 from repro_torch.core import ledger as L
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 # per-player state fields: each rank holds its own players' rows
 SHARDED_FIELDS = ("alive", "disputed", "hits", "wsum", "wsum_shift")
@@ -65,6 +67,24 @@ STATE_DTYPES = dict(batched.STATE_DTYPES, **dict.fromkeys(WIRE_FIELDS,
 _PER_ATTEMPT = ("hist_wire_core", "hist_wire_ws", "hist_wire_hist",
                 "hist_wire_votes")
 _WS_BYTES = 4                      # a float32 weight sum on the wire
+
+# -- checkpoint identity: the batched StepState's leaves (same names,
+# same dtypes, key words uint32 on disk) plus the wire counters
+STATE_TREEDEF = "repro_torch.core.sharded_batched.state"
+
+
+def _unflatten_state(leaves: dict, device) -> dict:
+    missing = set(STATE_DTYPES) - set(leaves)
+    if missing:
+        raise KeyError(f"checkpoint missing sharded-state leaves: "
+                       f"{sorted(missing)}")
+    batched.check_state_dtypes(leaves, STATE_DTYPES, "sharded state")
+    return {f: batched.state_leaf_tensor(f, v, device)
+            for f, v in leaves.items()}
+
+
+msgpack_ckpt.register_treedef(STATE_TREEDEF, _unflatten_state,
+                              dict.fromkeys(batched.KEY_FIELDS, "uint32"))
 
 
 class PlayersGroup(boost_attempt.Wire):
@@ -318,6 +338,20 @@ def run_rounds_sharded(state: dict, x, y, cfg: BoostConfig, cls,
 
 def _rounds(g: PlayersGroup, state: dict, x, y, cfg: BoostConfig, cls,
             n, player_sched, no_center: bool) -> tuple[dict, int]:
+    """The rounds of one call under a ``run_rounds`` span."""
+    B = int(state["attempt"].shape[0])
+    with obs_trace.span("run_rounds", "engine", engine="sharded", B=B,
+                        n=-1 if n is None else int(n),
+                        mesh_devices=g.size), \
+            obs_trace.annotate("run_rounds_sharded"):
+        out = _rounds_body(g, state, x, y, cfg, cls, n, player_sched,
+                           no_center)
+        obs_trace.sync_if_tracing(g.device)
+    return out
+
+
+def _rounds_body(g: PlayersGroup, state: dict, x, y, cfg: BoostConfig,
+                 cls, n, player_sched, no_center: bool) -> tuple[dict, int]:
     dev = g.device
     x, y = batched.as_tensor(x, dev), batched.as_tensor(y, dev)
     B, k = x.shape[:2]
@@ -453,10 +487,11 @@ def finalize_sharded(state: dict, x, y, alive0, cfg: BoostConfig, cls,
     math)."""
     proto = batched.StepState(**{f: state[f]
                                  for f in batched.StepState._fields})
-    base = batched.finalize(proto, x, y, alive0, cfg, cls, m_true=m_true,
-                            steps=steps)
-    wire = {f: batched._host(state[f]) for f in WIRE_FIELDS
-            if not f.startswith("awire_")}
+    with obs_trace.span("finalize", "engine", engine="sharded"):
+        base = batched.host_result(proto, x, y, alive0, cfg, cls,
+                                   m_true=m_true, steps=steps)
+        wire = {f: batched._host(state[f]) for f in WIRE_FIELDS
+                if not f.startswith("awire_")}
     return ShardedClassifyResult(
         **{f.name: getattr(base, f.name)
            for f in dataclasses.fields(batched.BatchedClassifyResult)},
@@ -465,30 +500,86 @@ def finalize_sharded(state: dict, x, y, alive0, cfg: BoostConfig, cls,
         collective_calls=collective_calls)
 
 
+class ShardedClassifyProgram(batched.ClassifyProgram):
+    """The sharded engine bound to one input signature
+    (``batched.signature``) and one :class:`PlayersGroup` — the
+    counterpart of the reference's ``lower_classify_sharded``
+    executable: ``batched.ClassifyProgram``'s per-shape work on this
+    rank's kloc players; another signature or group raises."""
+
+    def __init__(self, x, y, cfg: BoostConfig, cls, group: PlayersGroup,
+                 no_center: bool = False):
+        players_per_rank(cfg.k, group.size)
+        self.group, self.no_center = group, no_center
+        super().__init__(x, y, cfg, cls, device=group.device,
+                         kloc=group.kloc)
+
+    def __call__(self, x, y, alive, keys, player_sched=None,
+                 m_true=None) -> "ShardedClassifyResult":
+        self.check(x, y)
+        return _run_to_end(self.group, x, y, keys, self.cfg, self.cls,
+                           alive, self.no_center, m_true, player_sched,
+                           self.t_buf)
+
+
+def lower_classify_sharded(x, y, alive, keys, cfg: BoostConfig, cls,
+                           group: PlayersGroup, no_center: bool = False,
+                           ) -> ShardedClassifyProgram:
+    """The sharded bucket program of one signature over ``group`` (the
+    reference's ``lower_classify_sharded``; ``alive`` and ``keys`` fix
+    nothing here), its build under a ``compile`` span."""
+    with obs_trace.span("compile", "compile", engine="sharded",
+                        B=int(x.shape[0]), mloc=int(x.shape[2])):
+        return ShardedClassifyProgram(x, y, cfg, cls, group,
+                                      no_center=no_center)
+
+
+def _run_to_end(g: PlayersGroup, x, y, keys, cfg: BoostConfig, cls, alive,
+                no_center: bool, m_true, player_sched,
+                t_buf: int | None = None) -> "ShardedClassifyResult":
+    state = init_state_sharded(x, y, keys, cfg, alive=alive, t_buf=t_buf,
+                               cls=cls, device=g.device)
+    if state["hits"].shape[1] != cfg.k:
+        raise ValueError(f"x has {state['hits'].shape[1]} players but "
+                         f"cfg.k={cfg.k}")
+    g.calls = dict.fromkeys(g.calls, 0)
+    state, steps = _rounds(g, state, x, y, cfg, cls, None, player_sched,
+                           no_center)
+    B, k, mloc = state["hits"].shape
+    alive0 = np.ones((B, k, mloc), bool) if alive is None else alive
+    return finalize_sharded(state, x, y, alive0, cfg, cls, m_true=m_true,
+                            group=g, steps=steps,
+                            collective_calls=dict(g.calls))
+
+
 def run_accurately_classify_sharded(x, y, keys, cfg: BoostConfig, cls,
                                     group: PlayersGroup | None = None,
                                     alive=None, no_center: bool = False,
                                     m_true=None, player_sched=None,
-                                    device=None) -> ShardedClassifyResult:
+                                    device=None,
+                                    compiled: ShardedClassifyProgram
+                                    | None = None,
+                                    ) -> ShardedClassifyResult:
     """B-task AccuratelyClassify over a players group (default: a
     1-rank group on ``device``, ``cuda`` unless ``device="cpu"``).
 
     Same contract as ``batched.run_accurately_classify_batched`` — and
     the same protocol outputs on the same inputs and schedule — plus
     the wire counters, the group size, its backend, and the run's
-    collective calls by kind.
+    collective calls by kind.  ``compiled``: a
+    :func:`lower_classify_sharded` program of this signature, which
+    also fixes the group.
     """
+    if compiled is not None:
+        if (cfg, cls, no_center) != (compiled.cfg, compiled.cls,
+                                     compiled.no_center):
+            raise ValueError("cfg, cls or no_center differs from the "
+                             "program's")
+        if group is not None and group is not compiled.group:
+            raise ValueError("a sharded bucket program was called with "
+                             "another players group than it is bound to")
+        return compiled(x, y, alive, keys, player_sched=player_sched,
+                        m_true=m_true)
     with _group_for(group, cfg.k, device) as g:
-        state = init_state_sharded(x, y, keys, cfg, alive=alive, cls=cls,
-                                   device=g.device)
-        if state["hits"].shape[1] != cfg.k:
-            raise ValueError(f"x has {state['hits'].shape[1]} players but "
-                             f"cfg.k={cfg.k}")
-        g.calls = dict.fromkeys(g.calls, 0)
-        state, steps = _rounds(g, state, x, y, cfg, cls, None,
-                               player_sched, no_center)
-        B, k, mloc = state["hits"].shape
-        alive0 = np.ones((B, k, mloc), bool) if alive is None else alive
-        return finalize_sharded(state, x, y, alive0, cfg, cls,
-                                m_true=m_true, group=g, steps=steps,
-                                collective_calls=dict(g.calls))
+        return _run_to_end(g, x, y, keys, cfg, cls, alive, no_center,
+                           m_true, player_sched)

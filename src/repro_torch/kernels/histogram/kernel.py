@@ -60,10 +60,12 @@ def tile_rows(F: int) -> int:
     return max(1, min(MAX_TILE, TILED_SMEM_BYTES // (2 * F + 8)))
 
 
+@functools.lru_cache(maxsize=1024)
 def plan(G: int, N: int, c: int, F: int, bins: int) -> HistPlan:
     """The route and launch geometry for G tasks (or task·player pairs)
     of N nodes, c points, F features and ``bins`` bins: "sort" wherever
-    its CTA's state fits."""
+    its CTA's state fits.  Memoized: a bucket program makes its plans
+    ahead of its runs (``boost_attempt.prepare_kernels``)."""
     smem = sort_smem_bytes(N, c, bins)
     if c <= MAX_SORT_POINTS and G <= MAX_SORT_COLUMNS \
             and smem <= SMEM_LIMIT:
@@ -79,6 +81,7 @@ def chunk_smem_bytes(tile: int, bins: int) -> int:
     return 4 * (SORT_WARPS * bins + bins + 1) + 2 * 2 * tile
 
 
+@functools.lru_cache(maxsize=1024)
 def chunk_plan(G: int, c: int, tile: int, bins: int) -> HistPlan:
     """The "chunked" route for G columns of c points in tiles of
     ``tile``: its shared memory, or ValueError for a shape it does not

@@ -48,13 +48,21 @@ Usage:
     python -m repro_torch.launch.serve --workload classify \\
         --batch 16 --m 1048576 --k 4 --noise 8 --domain 65536 \\
         --chunk-size 16384
+    python -m repro_torch.launch.serve --workload serve-stream \\
+        --m 262144 --k 4 --noise 8 --domain 65536 --requests 48 \\
+        --trace bursty --burst 8 --policy fill --scenario drift
+    python -m repro_torch.launch.serve --workload serve-stream \\
+        --device cpu --m 128 --k 2 --requests 16 --preempt 0:3 \\
+        --ckpt-dir /tmp/ckpt --trace-out trace.json --metrics-out m.json
 
 Each prints one JSON line with the reference's keys plus ``device`` and
 ``kernel_launches`` (the launches of each kernel the workload's path
 can reach, in the timed run and the reports after it; 0 on the CPU,
 where the plain versions run); ``lm`` adds ``flash``, ``classify``
 adds ``steps`` and, with ``--scenario``, ``reports_s`` (the seconds the
-reports took); ``--engine sharded`` adds the reference's
+reports took); ``serve-stream`` prints the reference's keys
+(``dispatches``, ``steady_compiles`` — program builds after the warmup
+—, per-bucket p50/p99, …); ``--engine sharded`` adds the reference's
 ``mesh_devices``, ``ledger_vs_payload`` and ``collective_bytes_max``,
 and the port's ``backend`` (``nccl`` or ``gloo``) and
 ``collective_calls`` (the run's collectives by kind).  Prompt
@@ -93,6 +101,8 @@ from repro_torch.kernels.mw_update import kernel as mw_kernel
 from repro_torch.kernels.mw_update import ops as mw_ops
 from repro_torch.kernels.stump import kernel as stump_kernel
 from repro_torch.kernels.stump import ops as stump_ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 # every kernel the engine can launch: name → (kernel module, ops module)
 KERNELS = {"mw_update": (mw_kernel, mw_ops),
@@ -101,11 +111,8 @@ KERNELS = {"mw_update": (mw_kernel, mw_ops),
            "flash_attention": (flash_kernel, flash_ops)}
 # the kernels each workload's path can launch, which its JSON reports
 PATH_KERNELS = {"classify": ("mw_update", "histogram", "stump"),
+                "serve-stream": ("mw_update", "histogram"),
                 "lm": ("flash_attention",)}
-
-_NOT_YET = {
-    "serve-stream": "the scheduler, ROADMAP queue 1, item 13",
-}
 
 
 def _build_kernels(dev: torch.device) -> None:
@@ -296,6 +303,111 @@ def _check_feature_scenario(name: str, args) -> None:
             f"--features ≥ 2 (got {args.features})")
 
 
+def _next_pow2(v: int) -> int:
+    return 1 << max(v - 1, 1).bit_length()
+
+
+def run_serve_stream(args):
+    """Replay a mixed-shape request stream through the scheduler (the
+    reference's ``run_serve_stream``: the same checks, shape mix,
+    lattice and JSON keys, plus ``device`` and ``kernel_launches``, the
+    launches of the stream's run after the warmup).
+
+    ``--preempt D:R`` (repeatable) cuts the D-th dispatch after R wire
+    rounds, checkpoints its engine state to ``--ckpt-dir`` and requeues
+    the batch; its completions are still those of ``one_shot``.
+    Returns (JSON dict, completions, scheduler); the caller closes the
+    scheduler (it holds the sharded engine's players groups)."""
+    from repro_torch.launch import scheduler as S
+
+    if args.m % (2 * args.k):
+        raise SystemExit(
+            f"--m {args.m} must be a multiple of 2*k={2 * args.k}: the "
+            "serve-stream shape mix includes m/2, and every shape's k "
+            "shards must be equal-sized")
+    if args.scenario in scenarios.INFRA:
+        raise SystemExit(
+            f"--scenario {args.scenario} is an infrastructure adversary "
+            "— use --workload classify for player schedules, or "
+            "--preempt for serve-stream fault injection")
+    if getattr(args, "chunk_size", None) is not None:
+        raise SystemExit("--chunk-size is a flag of --workload classify")
+    n = args.requests
+    shapes = [
+        {"m": args.m // 2, "noise": 0},
+        {"m": args.m, "noise": args.noise},
+        {"m": args.m * 2, "noise": args.noise,
+         "scenario": args.scenario},
+    ]
+    preempt = {}
+    for spec in args.preempt or []:
+        d, r = spec.split(":")
+        preempt[int(d)] = int(r)
+    if args.trace == "bursty":
+        arrivals = S.bursty_trace(n, rate_per_s=args.rate,
+                                  burst=args.burst, seed=args.seed)
+    else:
+        arrivals = S.poisson_trace(n, rate_per_s=args.rate,
+                                   seed=args.seed)
+    if args.scenario in scenarios.FEATURE_SCENARIOS:
+        _check_feature_scenario(args.scenario, args)
+    reqs = S.make_request_stream(
+        n, arrivals, shapes, seed0=args.seed, k=args.k,
+        clsname=args.cls, domain=args.domain,
+        num_features=args.features,
+        tree_depth=args.tree_depth, tree_bins=args.tree_bins,
+        tree_comm_mode=args.comm_mode, tree_vote_topk=args.vote_topk,
+        coreset_size=args.coreset, opt_budget=args.opt_budget,
+        engine=args.engine)
+    # one lattice point per distinct shape: the next power of two over
+    # each shape's per-player mloc (deduped, so nearby shapes share)
+    lattice = S.BucketLattice(
+        b_sizes=(1, 4, 8),
+        mloc_sizes=tuple(sorted({_next_pow2(s["m"] // args.k)
+                                 for s in shapes})))
+    dev = (sharded_batched.rank_device(args.device)
+           if args.engine == "sharded" else resolve_device(args.device))
+    _build_kernels(dev)
+    sched = S.BoostScheduler(lattice=lattice, policy=args.policy,
+                             fill_wait_s=args.fill_wait,
+                             ckpt_dir=args.ckpt_dir if preempt else None,
+                             preempt=preempt, device=dev)
+    try:
+        if args.warmup:
+            sched.warm(reqs)            # build every reachable bucket
+        warm = dataclasses.replace(sched.cache.stats)
+        for _, ops in KERNELS.values():
+            ops.launches = 0
+        done = sched.run_stream(reqs)
+        launches = _launches("serve-stream")
+        reg = obs_metrics.default_registry()
+        obs_metrics.publish_cache_stats(sched.cache.stats, reg)
+        obs_metrics.publish_scheduler_stats(sched.stats, reg)
+        result = {
+            "workload": "serve-stream", "engine": args.engine,
+            "trace": args.trace, "policy": args.policy,
+            "requests": n, "dispatches": sched.stats.dispatches,
+            "padded_requests": sched.stats.padded_requests,
+            "filler_lanes": sched.stats.filler_lanes,
+            "preemptions": sched.stats.preemptions,
+            "resumes": sched.stats.resumes,
+            "cache_hits": sched.cache.stats.hits,
+            "cache_compiles": sched.cache.stats.compiles,
+            "steady_compiles": sched.cache.stats.compiles - warm.compiles,
+            "ok": sum(c.ok for c in done),
+            **S.latency_summary(done),
+        }
+        if args.engine == "sharded":
+            result["ledger_validated"] = sum(
+                bool(c.validate_ledger()) for c in done if c.ok)
+        result["device"] = dev.type
+        result["kernel_launches"] = launches
+    except BaseException:
+        sched.close()
+        raise
+    return result, done, sched
+
+
 def make_class(args):
     """The hypothesis class the CLI flags name (the reference's); a
     tree class takes ``--chunk-size`` for its histograms."""
@@ -375,17 +487,56 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rejoin: rounds absent before returning")
     ap.add_argument("--infra-miss-rate", type=float, default=0.3,
                     help="flaky: per-round absence probability")
+    # serve-stream workload
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--trace", default="poisson",
+                    choices=["poisson", "bursty"])
+    ap.add_argument("--rate", type=float, default=100.0)
+    ap.add_argument("--burst", type=int, default=8)
+    ap.add_argument("--policy", default="pack",
+                    choices=["pack", "fill"])
+    ap.add_argument("--fill-wait", type=float, default=0.05)
+    ap.add_argument("--warmup", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--preempt", action="append", metavar="D:R",
+                    help="preempt dispatch D after R wire rounds "
+                         "(repeatable); state checkpoints to --ckpt-dir")
+    ap.add_argument("--ckpt-dir", default="experiments/preempt_ckpt")
+    # observability (repro_torch/obs): host-span tracing + metrics
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record host protocol spans and write a "
+                         "Chrome/Perfetto trace JSON here (load it at "
+                         "https://ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry (scheduler/cache "
+                         "counters, ckpt timing histograms) as JSON")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
+def run_workload(args) -> dict:
+    """Run ``args.workload`` under ``--trace-out``/``--metrics-out`` and
+    return its JSON dict; the trace and the metrics are written even
+    when the run raises."""
+    rec = obs_trace.enable() if args.trace_out else None
+    try:
+        if args.workload == "serve-stream":
+            out, _, sched = run_serve_stream(args)
+            sched.close()
+            return out
+        run = run_lm if args.workload == "lm" else run_classify
+        return run(args)[0]
+    finally:
+        if rec is not None:
+            obs_trace.disable()
+            rec.save(args.trace_out)
+        if args.metrics_out:
+            obs_metrics.default_registry().save(args.metrics_out)
+
+
 def main():
     args = build_parser().parse_args()
-    if args.workload in _NOT_YET:
-        raise SystemExit(f"--workload {args.workload} is not ported yet: "
-                         f"{_NOT_YET[args.workload]}")
-    run = run_lm if args.workload == "lm" else run_classify
-    out = run(args)[0]
+    out = run_workload(args)
     # in a world its launcher formed (torchrun), rank 0 reports
     if not dist.is_initialized() or dist.get_rank() == 0:
         print(json.dumps(out))

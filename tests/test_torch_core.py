@@ -12,6 +12,7 @@ get rtol 1e-5: torch's and XLA's float32 sum/log2/exp2 differ by an ulp.
 
 import dataclasses
 import itertools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -217,11 +218,11 @@ def test_weights_within_stated_tolerance():
         np.asarray(j_weights.update_hits(hits, alive, alive)))
 
 
-def test_slice_boundaries_raise_with_their_queue_item(monkeypatch):
+def test_slice_boundaries_raise_with_their_queue_item(monkeypatch, capsys):
     """Item 10 (the streaming tier) is ported: the three places that
     refused ``chunk_size`` now run it and equal the monolithic path,
-    the engine through ``BoostConfig.chunk_size`` included.  What is
-    still at a boundary raises with its queue item."""
+    the engine through ``BoostConfig.chunk_size`` included; item 13's
+    ``serve --workload serve-stream`` now serves a stream."""
     x = torch.tensor([[[5, 1, 7, 1, 0, 3, 3, 6]]], dtype=torch.int32)
     np.testing.assert_array_equal(
         streaming.sort_order(x, chunk_size=4).numpy(),
@@ -235,8 +236,14 @@ def test_slice_boundaries_raise_with_their_queue_item(monkeypatch):
     for f in ("hypotheses", "rounds", "ok", "attempts", "disputed"):
         np.testing.assert_array_equal(getattr(runs[0], f),
                                       getattr(runs[1], f), f)
+    # item 13 (the scheduler) is ported too: the CLI serves a short
+    # stream where it used to refuse it
     from repro_torch.launch import serve
-    monkeypatch.setattr("sys.argv", ["serve", "--workload", "serve-stream",
-                                     "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 13"):
-        serve.main()
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--workload", "serve-stream", "--device", "cpu",
+        "--requests", "3", "--m", "32", "--k", "2", "--coreset", "16",
+        "--opt-budget", "4", "--no-warmup"])
+    serve.main()
+    out = json.loads(capsys.readouterr().out)
+    assert out["ok"] == out["served"] == 3
+    assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0}

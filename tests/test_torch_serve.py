@@ -1,4 +1,5 @@
-"""``python -m repro_torch.launch.serve --workload classify`` on the CPU."""
+"""``python -m repro_torch.launch.serve`` on the CPU: ``--workload
+classify`` and ``lm`` (``serve-stream`` is tests/test_torch_scheduler.py's)."""
 
 import json
 import os
@@ -28,17 +29,6 @@ def test_serve_classify_cpu_prints_one_json_line():
     assert out["kernel_launches"] == {"mw_update": 0, "histogram": 0,
                                       "stump": 0}
     assert out["steps"] > 0 and out["tasks_per_s"] > 0
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--workload", "serve-stream"], "item 13"),
-    (["--workload", "serve-stream", "--engine", "sharded"], "item 13"),
-])
-def test_serve_names_the_queue_item_of_what_is_not_ported(flags, item,
-                                                          monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["serve", "--device", "cpu"] + flags)
-    with pytest.raises(SystemExit, match=item):
-        serve.main()
 
 
 @pytest.mark.parametrize("flags", [
