@@ -66,8 +66,21 @@ UTMALDG), and drives the port's paths through
   run, and a ``device_trace`` of two rounds with the mw_update kernel
   inside the ``run_rounds`` region;
 
+* training and the paper's side results — ``repro_torch.launch.train``
+  on deepseek-7b at full width cut to 4 of its 30 layers (20 steps of
+  8 × 512 tokens, the resilient quarantine on, no flash launch: the
+  reference trains on the einsum path) and the reduced model's first 3
+  steps against the CPU's; the semi-agnostic reduction (Thresholds,
+  m = 2^16, 96 rounds of a [4, 100, 16384] Gumbel draw), E_S(f) ≤
+  E_S(g), and its whole result at m = 2048 equal to the CPU's;
+  Theorem 2.3's DISJ reduction at r = 512 on the host loop, both
+  answers decided (its mw_update launches counted); the finite class
+  at m = 2^20, |H| = 512, equal to the CPU's;
+
 each with every kernel's launch count set to 0 just before and read
-just after.  Then the card's protocol outputs are checked against the
+just after.  The LM slice's parameters are the reference's for seed 0
+(their init timed on its own), and the reduced models' seed-0
+parameters made on the card are held bit-equal to the CPU's.  Then the card's protocol outputs are checked against the
 port's CPU run on the three integer classes, on AxisStumps, on
 HistogramTrees in its three wire modes and on a 240-round thresholds
 run, the scenario reports of ``boundary``, ``byzantine`` and
@@ -220,6 +233,21 @@ STUMP_MAIN = (16, 1 << 16, 8, (1 << 16) + 1)   # B, c, F, Q of the OPT launch
 STUMP_DROP = (16, 12288, 8, 12289)             # the dropout run's: 3 of 4 shards
 STUMP_SMALL = (1, 1 << 14, 8, (1 << 14) + 1)   # the step matrix fits: 8.6 GB
 LM_TOL = 2e-2                      # tests/test_kernels.py model-path tolerance
+# training: deepseek-7b at full width (d_model 4096, 32 heads of 128,
+# d_ff 11008, vocab 102400) cut to 4 of its 30 layers: float32 weights,
+# gradients and two AdamW moments are 16 bytes a parameter, 26.4 GB at
+# 1.65e9 parameters (30 layers would need 110.6 GB)
+TRAIN_LAYERS = 4
+TRAIN_ARGS = ["--arch", "deepseek-7b", "--no-smoke", "--vocab", "102400",
+              "--seq-len", "512", "--batch", "8", "--num-examples", "2048",
+              "--noise", "0.1", "--resilient", "--check-every", "5",
+              "--steps", "20", "--log-every", "1"]
+TRAIN_SMOKE_ARGS = ["--steps", "3", "--log-every", "1", "--noise", "0.1",
+                    "--resilient", "--check-every", "10"]
+# the paper's side results at benchmarks/' sizes
+SEMI = dict(n=1 << 16, m=1 << 16, k=4, noise=8, coreset=100, budget=16)
+DISJ = dict(n=1 << 12, k=2, coreset=400, r=512, weight=256)
+FINITE = dict(n=1 << 12, H=512, m=1 << 20, k=4)
 LM_REL_L2_GATE = 5e-2              # flash vs einsum prefill, last-token logits
 
 
@@ -769,7 +797,9 @@ def phase_stump(ops, kernel) -> dict:
                            warm=3)
         parts = device_breakdown(lambda: ops.stump_scores(x, wy, th))
         log(f"stump {path} OPT shape: device ms per call by kernel "
-            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f"; device_ms per call (profiler, all kernels) "
+            f"{sum(parts.values()):.4f}")
         bound_ms, bound_by, dense_ms = stump_bound(*shape)
         nops, flops, nbytes = stump_work(*shape)
         plan, scratch = kernel.plan(B, c, F), kernel.scratch_bytes(B, c, F)
@@ -789,12 +819,15 @@ def phase_stump(ops, kernel) -> dict:
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "dense_bound_ms": dense_ms, "route": "sort",
                        "device_ms_by_kernel": parts,
+                       "device_ms": sum(parts.values()),
                        "sample_stride": 1 << plan.sample_log2,
                        "scratch_bytes": scratch}
         del x, wy, th
     b1, c1, f1, q1 = STUMP_SMALL
     x, wy, th = opt_inputs(b1, c1, f1, seed=10)
     small_ms = time_ms(lambda: ops.stump_scores(x, wy, th), reps=10)
+    small_device_ms = sum(device_breakdown(
+        lambda: ops.stump_scores(x, wy, th)).values())
     small_plain_ms = time_ms(lambda: ops.stump_scores(x, wy, th,
                                                       interpret=True),
                              reps=5, warm=1)
@@ -807,7 +840,8 @@ def phase_stump(ops, kernel) -> dict:
     del step, lib
     torch.cuda.empty_cache()
     small_bound, _, small_dense = stump_bound(*STUMP_SMALL)
-    log(f"stump at {list(STUMP_SMALL)}: kernel_ms {small_ms:.4f} plain_ms "
+    log(f"stump at {list(STUMP_SMALL)}: kernel_ms {small_ms:.4f} "
+        f"device_ms per call (profiler) {small_device_ms:.4f} plain_ms "
         f"{small_plain_ms:.4f} library_ms {library_ms:.4f} (torch.matmul, "
         f"step matrix built outside) bound_ms {small_bound:.4f} "
         f"dense_bound_ms {small_dense:.4f}")
@@ -826,7 +860,9 @@ def phase_stump(ops, kernel) -> dict:
             "dense_bound_ms": main["dense_bound_ms"],
             "torch_calls_ms": main["torch_calls_ms"],
             "library_ms": library_ms, "library_shape": list(STUMP_SMALL),
-            "at_library_shape": {"ms": small_ms, "plain_ms": small_plain_ms,
+            "at_library_shape": {"ms": small_ms,
+                                 "device_ms": small_device_ms,
+                                 "plain_ms": small_plain_ms,
                                  "bound_ms": small_bound,
                                  "dense_bound_ms": small_dense},
             "path": "scenario", "paths": paths}
@@ -1817,6 +1853,12 @@ def phase_lm_slice(serve, models, layers) -> tuple[dict, dict]:
     check(out["tokens_finite"] and run.generated.shape == (
         args.batch, args.gen + 1), "lm slice: bad generated tokens")
     params = run.params
+    log(f"lm slice: init (the reference's parameters for seed "
+        f"{args.seed}, {cfg.param_count()} truncated-normal draws) "
+        f"{run.init_s:.2f} s, max_memory_allocated after it "
+        f"{run.init_peak_bytes} bytes")
+    log(f"lm slice: first 8 generated tokens for seed {args.seed}: "
+        f"{run.generated[0][:8].tolist()}")
     log(f"lm slice: {cfg.name} {cfg.param_count()} params, prefill_s "
         f"{out['prefill_s']} decode_s_per_token "
         f"{out['decode_s_per_token']} launches {launches} flash routes "
@@ -1885,26 +1927,219 @@ def phase_lm_slice(serve, models, layers) -> tuple[dict, dict]:
     return launches, routes
 
 
-def to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, dev) for v in tree]
-    return tree.to(dev)
+def kernel_counts(serve) -> dict:
+    return {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
+
+
+def zero_counts(serve) -> None:
+    for _, ops in serve.KERNELS.values():
+        ops.launches = 0
+
+
+def phase_train(serve, train, configs) -> dict:
+    """``repro_torch.launch.train`` on deepseek-7b at full width, 4
+    layers, seq 512, batch 8, 20 steps with the resilient quarantine:
+    every loss and grad norm finite, no flash launch (the trainer runs
+    the einsum path, as the reference's); seconds a step after the
+    first, tokens/s, peak memory, the final loss and quarantine stats."""
+    cfg = dataclasses.replace(configs.get_config("deepseek-7b"),
+                              num_layers=TRAIN_LAYERS)
+    check((cfg.d_model, cfg.num_heads, cfg.hd, cfg.d_ff, cfg.vocab_size)
+          == (4096, 32, 128, 11008, 102400),
+          f"train slice: {cfg.name} is not deepseek-7b's full width")
+    args = train.build_parser().parse_args(TRAIN_ARGS)
+    zero_counts(serve)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = train.run(args, cfg=cfg)
+    total_s = time.perf_counter() - t0
+    launches = kernel_counts(serve)
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    check([r["step"] for r in hist] == list(range(1, args.steps + 1)),
+          f"train slice: logged steps {[r['step'] for r in hist]}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in hist), "train slice: a non-finite loss or grad norm")
+    check(launches == dict.fromkeys(launches, 0)
+          and res["kernel_launches"] == {"flash_attention": 0},
+          f"train slice launched a kernel: {launches}")
+    step_s = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (len(hist) - 1)
+    tokens = args.batch * args.seq_len
+    log(f"train slice: {cfg.name} at {cfg.num_layers} layers, "
+        f"{res['params']} parameters, batch {args.batch} x seq "
+        f"{args.seq_len}; {step_s:.3f} s a step after the first "
+        f"({tokens / step_s:.0f} tokens/s), first step "
+        f"{hist[0]['elapsed_s']} s, max_memory_allocated {peak} bytes, "
+        f"run {total_s:.1f} s in all (init and eval included)")
+    log(f"train slice: losses {[round(r['loss'], 4) for r in hist]}")
+    log(f"train slice: final train loss {res['final_train_loss']:.4f}, "
+        f"clean eval loss {res['clean_eval_loss']:.4f}, quarantined "
+        f"{res['quarantined']} alive {res['alive']} noise_recall "
+        f"{res['noise_recall']:.3f} noise_precision "
+        f"{res['noise_precision']:.3f}; launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_card_vs_cpu(train) -> None:
+    """The reduced model's first 3 training steps on the card and on the
+    CPU: loss and grad norm within the model-path tolerance."""
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        args = train.build_parser().parse_args(TRAIN_SMOKE_ARGS
+                                               + ["--device", dev])
+        with contextlib.redirect_stdout(sys.stderr):
+            hist[dev] = train.run(args)["history"]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        for f in ("loss", "grad_norm"):
+            check(abs(a[f] - b[f]) <= LM_TOL * abs(b[f]),
+                  f"train card vs cpu: step {a['step']} {f} {a[f]} vs "
+                  f"{b[f]}")
+    log(f"train card vs cpu: steps 1-3 loss "
+        f"{[r['loss'] for r in hist['cuda']]} (card) "
+        f"{[r['loss'] for r in hist['cpu']]} (cpu), grad norm "
+        f"{[r['grad_norm'] for r in hist['cuda']]} (card) "
+        f"{[r['grad_norm'] for r in hist['cpu']]} (cpu), within {LM_TOL}")
+
+
+def phase_semi_agnostic(serve, semi_agnostic, prng, tasks, weak,
+                        types) -> dict:
+    """The reduction baseline: Thresholds, m = 2^16 over k = 4 players,
+    noise 8, coreset 100 — 96 rounds of a [4, 100, 16384] Gumbel draw
+    on the card; E_S(f) ≤ E_S(g); then the whole result at m = 2048 on
+    the card equal to the CPU's."""
+    cls = weak.Thresholds(n=SEMI["n"])
+    cfg = types.BoostConfig(k=SEMI["k"], coreset_size=SEMI["coreset"],
+                            domain_size=SEMI["n"], opt_budget=SEMI["budget"])
+    task = tasks.make_task(cls, m=SEMI["m"], k=SEMI["k"],
+                           noise=SEMI["noise"], seed=0)
+    zero_counts(serve)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = semi_agnostic.run_semi_agnostic(task.x, task.y, prng.key(0), cfg,
+                                          cls)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernel_counts(serve)
+    rounds = cfg.num_rounds(SEMI["m"])
+    check(res.final_errors <= res.boost_errors,
+          f"semi-agnostic: E_S(f) {res.final_errors} > E_S(g) "
+          f"{res.boost_errors}")
+    log(f"semi-agnostic: m {SEMI['m']} k {SEMI['k']} noise {SEMI['noise']}:"
+        f" {rounds} rounds in {secs:.2f} s ({rounds / secs:.1f} rounds/s),"
+        f" boost_errors {res.boost_errors} final_errors "
+        f"{res.final_errors} patched {res.patched} bits "
+        f"{res.ledger.total_bits}; launches {launches}")
+    small = tasks.make_task(cls, m=2048, k=SEMI["k"], noise=SEMI["noise"],
+                            seed=1)
+    out = {dev: semi_agnostic.run_semi_agnostic(
+        small.x, small.y, prng.key(1), cfg, cls, device=dev)
+        for dev in ("cuda", "cpu")}
+    a, b = out["cuda"], out["cpu"]
+    check(dataclasses.asdict(a.ledger) == dataclasses.asdict(b.ledger)
+          and (a.boost_errors, a.final_errors, a.patched)
+          == (b.boost_errors, b.final_errors, b.patched)
+          and np.array_equal(a.classifier.hypotheses,
+                             b.classifier.hypotheses)
+          and np.array_equal(a.classifier.dispute_x,
+                             b.classifier.dispute_x),
+          "semi-agnostic card vs cpu: the results differ at m = 2048")
+    log(f"semi-agnostic card vs cpu (m = 2048): hypotheses, errors, "
+        f"patch and ledger equal ({a.ledger.total_bits} bits)")
+    return launches
+
+
+def phase_lower_bound(serve, lower_bound, types) -> dict:
+    """Theorem 2.3's reduction at r = 512, weight 256 (n = 2^12, k = 2,
+    coreset 400, budget 3r + 8): both answers decided correctly by the
+    host loop on the card; its mw_update launches counted."""
+    cfg = types.BoostConfig(k=DISJ["k"], coreset_size=DISJ["coreset"],
+                            domain_size=DISJ["n"],
+                            opt_budget=3 * DISJ["r"] + 8)
+    rng = np.random.default_rng(0)
+    zero_counts(serve)
+    for disjoint in (True, False):
+        x, y = lower_bound.random_disj_instance(
+            rng, r=DISJ["r"], weight=DISJ["weight"], disjoint=disjoint)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lower_bound.solve_disjointness(x, y, DISJ["n"], cfg,
+                                             seed=DISJ["r"])
+        secs = time.perf_counter() - t0
+        check(out.disjoint_decided == disjoint,
+              f"lower bound: r {DISJ['r']} disjoint={disjoint} decided "
+              f"{out.disjoint_decided}")
+        log(f"lower bound: r {DISJ['r']} weight {DISJ['weight']} "
+            f"disjoint={disjoint}: decided correctly, errors {out.errors} "
+            f"opt {out.opt} bits {out.total_bits} attempts {out.attempts} "
+            f"in {secs:.2f} s")
+    launches = kernel_counts(serve)
+    check(launches["mw_update"] > 0,
+          f"lower bound: the host loop launched no mw_update: {launches}")
+    log(f"lower bound: launches {launches}")
+    return launches
+
+
+def phase_finite(serve, finite, weak) -> dict:
+    """Section 6's finite-class learner at n = 2^12, |H| = 512, m = 2^20,
+    k = 4: errors equal on the card and on the CPU."""
+    n, H, m, k = FINITE["n"], FINITE["H"], FINITE["m"], FINITE["k"]
+    grid = np.asarray([[2.0, t, t, s] for t in range(0, n, 2 * n // H)
+                       for s in (1.0, -1.0)], np.float32)
+    check(grid.shape[0] == H, f"finite: |H| {grid.shape[0]} != {H}")
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, n, m).astype(np.int32)
+    y = np.where(x >= n // 3, 1, -1).astype(np.int8)
+    flip = rng.choice(m, size=256, replace=False)
+    y[flip] = -y[flip]
+    cls = weak.Thresholds(n=n)
+    zero_counts(serve)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = finite.learn_finite(x.reshape(k, -1), y.reshape(k, -1),
+                                       grid, cls, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    launches = kernel_counts(serve)
+    a, b = out["cuda"], out["cpu"]
+    check((a.errors, a.total_bits) == (b.errors, b.total_bits)
+          and torch.equal(a.best_params.cpu(), b.best_params),
+          f"finite: card {a.errors} errors, cpu {b.errors}")
+    log(f"finite class: m {m} |H| {H} k {k}: errors {a.errors} (= OPT) "
+        f"bits {a.total_bits}, equal on the card and the CPU; "
+        f"{secs['cuda']:.3f} s on the card, {secs['cpu']:.2f} s on the "
+        f"CPU; launches {launches}")
+    return launches
 
 
 def phase_lm_card_vs_cpu(models, configs, flash_ops) -> None:
-    """Reduced deepseek-7b and qwen3-32b, params made once on the CPU:
-    prefill logits and 4 teacher-forced decode steps on the card and on
-    the CPU at the model-path tolerance; flash launches one per layer
-    on the card, none on the CPU."""
+    """Reduced deepseek-7b and qwen3-32b: the seed-0 parameters made on
+    the card bit-equal to those made on the CPU; prefill logits and 4
+    teacher-forced decode steps on the card and on the CPU at the
+    model-path tolerance; flash launches one per layer on the card,
+    none on the CPU."""
     import numpy as np
+
+    from repro_torch.optim import adamw
 
     for arch in ("deepseek-7b", "qwen3-32b"):
         cfg = configs.reduced(configs.get_config(arch))
         model = models.build(cfg, use_flash=True)
-        params = {"cpu": model.init(seed=0, device="cpu")}
-        params["cuda"] = to_device(params["cpu"], "cuda")
+        params = {"cpu": model.init(seed=0, device="cpu"),
+                  "cuda": model.init(seed=0, device="cuda")}
+        pairs = list(zip(adamw.tree_leaves(params["cuda"]),
+                         adamw.tree_leaves(params["cpu"])))
+        unequal = sum(int((a.cpu().view(torch.int32)
+                           != b.view(torch.int32)).sum()) for a, b in pairs)
+        check(unequal == 0, f"lm card vs cpu, {arch}: {unequal} weights "
+              f"of the seed-0 init differ between the card and the CPU")
+        log(f"lm card vs cpu, {cfg.name}: the seed-0 init is bit-equal on "
+            f"the card and the CPU ({len(pairs)} leaves, "
+            f"{sum(a.numel() for a, _ in pairs)} weights)")
         B, P, n = 2, 200, 4
         toks = np.random.default_rng(5).integers(
             0, cfg.vocab_size, size=(B, P + n)).astype(np.int32)
@@ -1939,8 +2174,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch import configs, models
-    from repro_torch.core import (approximation, batched, classify, ledger,
-                                  prng, sharded_batched, streaming, tasks,
+    from repro_torch.core import (approximation, batched, classify, finite,
+                                  ledger, lower_bound, prng, semi_agnostic,
+                                  sharded_batched, streaming, tasks, types,
                                   weak)
     from repro_torch.data import chunks
     from repro_torch.models import layers
@@ -1952,7 +2188,7 @@ def main() -> int:
     from repro_torch.kernels.mw_update import ops as mw_ops
     from repro_torch.kernels.stump import kernel as stump_kernel
     from repro_torch.kernels.stump import ops as stump_ops
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import roundtrace
     from repro_torch.obs import trace as obs_trace
@@ -2119,7 +2355,17 @@ def main() -> int:
     phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
           flash_ops)
-    # 12. results: each kernel's top-level launches are its own main
+    # 12. training and the paper's side results
+    train_launches = phase("train slice", phase_train, serve, train,
+                           configs)
+    phase("train card vs cpu", phase_train_card_vs_cpu, train)
+    semi_launches = phase("semi-agnostic", phase_semi_agnostic, serve,
+                          semi_agnostic, prng, tasks, weak, types)
+    disj_launches = phase("lower bound", phase_lower_bound, serve,
+                          lower_bound, types)
+    finite_launches = phase("finite class", phase_finite, serve, finite,
+                            weak)
+    # 13. results: each kernel's top-level launches are its own main
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``
@@ -2137,7 +2383,9 @@ def main() -> int:
             "serve_stream_preempted": pre_launches,
             "serve_stream_sharded": sstream_launches,
             "serve_stream_tree": tstream_launches,
-            "traced_rounds": traced_launches}
+            "traced_rounds": traced_launches, "train": train_launches,
+            "semi_agnostic": semi_launches, "lower_bound": disj_launches,
+            "finite": finite_launches}
     for name, entry in entries.items():
         entry["launches"] = runs[entry["path"]][name]
         for path, counts in runs.items():

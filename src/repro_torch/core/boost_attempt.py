@@ -94,7 +94,7 @@ def _gather_coreset(x, y, idx):
             approximation.gather_fill(y, idx))
 
 
-def _center_erm(cls, cx, cy, mix, c: int):
+def center_erm(cls, cx, cy, mix, c: int):
     """Pooled-coreset ERM under the mixture D_t (steps 2(c)+(d)): every
     coreset example of player i weighs mix_i / c — computed as
     mix_i · (1/c) with the reciprocal rounded to float32, the form XLA
@@ -158,7 +158,7 @@ def _round_body(cfg, cls, x, y, alive, x_orders, y_sorted, alive_sorted,
         h, loss = cls.erm_players(cx, cy, wire.local(mix) / float(c),
                                   all_gather=wire.gather)
     else:
-        h, loss = _center_erm(cls, cx_all, cy_all, mix, c)
+        h, loss = center_erm(cls, cx_all, cy_all, mix, c)
         if no_center:
             mine = pinned_argmax(player_alive) // kloc == wire.rank   # [B]
             h = wire.psum(torch.where(mine[:, None], h, 0.0))

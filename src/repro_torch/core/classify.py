@@ -109,6 +109,15 @@ def mask_invalid_points(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, pts, _sentinel(pts.dtype))
 
 
+def distinct_count(pts: torch.Tensor) -> torch.Tensor:
+    """|unique(pts)| over the point axis, int32 — the all-valid case of
+    :func:`distinct_count_masked`."""
+    lead = pts.shape[:-2] if torch.is_floating_point(pts) else pts.shape[:-1]
+    P = pts.shape[len(lead)]
+    return distinct_count_masked(
+        pts, torch.ones(lead + (P,), dtype=torch.bool, device=pts.device))
+
+
 def distinct_count_masked(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """|unique(pts[valid])| over the point axis, int32: pts [..., P]
     int points or [..., P, F] feature rows (a valid row holding a NaN

@@ -85,25 +85,28 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """Correctly rounded float32 ``a·b + c`` from float64 parts
     (``b``/``c`` tensors or float32-exact Python floats).
 
-    The float64 product of two float32 values is exact; TwoSum gives
-    the float64 sum and its exact error, and the float32 neighbour
-    nearest to that pair is the fused result.
+    The float64 product of two float32 values is exact, and so is the
+    float32 rounding of the float64 sum ``s`` unless ``s`` lands on a
+    midpoint between two float32 neighbours (float64 rounding cannot
+    cross one); there TwoSum's error term, the part of the exact sum
+    that ``s`` dropped, breaks the tie: ``s`` moves one float64 step
+    toward it, off the midpoint.
     """
     p = a.double() * (b.double() if torch.is_tensor(b) else b)
     cd = c.double() if torch.is_tensor(c) else c
     s = p + cd
+    r = s.float()
+    rd = r.double()
+    nb = torch.nextafter(r, torch.where(s > rd, math.inf, -math.inf)
+                         .to(r.dtype)).double()
+    mid = s * 2.0 == rd + nb
+    if not bool(mid.any()):
+        return r
     bb = s - p
     err = (p - (s - bb)) + (cd - bb)
-    r = s.float()
-    lo = torch.nextafter(r, torch.full_like(r, -math.inf))
-    hi = torch.nextafter(r, torch.full_like(r, math.inf))
-
-    def dist(q):
-        return ((s - q.double()) + err).abs()
-
-    d_r, d_lo, d_hi = dist(r), dist(lo), dist(hi)
-    out = torch.where(d_lo < d_r, lo, r)
-    return torch.where(d_hi < torch.minimum(d_lo, d_r), hi, out)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    fixed = torch.where(err != 0, torch.nextafter(s, toward), s).float()
+    return torch.where(mid, fixed, r)
 
 
 def _f32(v: float) -> float:
@@ -124,6 +127,7 @@ _LN2 = _f32(math.log(2.0))
 LN2 = _LN2                    # ln 2 rounded to float32
 # XLA folds x / ln 2 into x · (1/ln 2), the reciprocal rounded to float32
 _INV_LN2 = float(np.float32(1.0) / np.float32(_LN2))
+INV_LN2 = _INV_LN2
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
@@ -213,3 +217,89 @@ def exp2_neg(shift: torch.Tensor) -> torch.Tensor:
     return _exp2_neg_on(shift.device)[shift.long()]
 
 
+# XLA:CPU's float32 erf: x clamped to ±3.7439213, then x·P(x²)/Q(x²)
+# with every step of both polynomials an FMA (LLVM emits llvm.fma).
+_ERF_CLAMP = _f32(3.7439212799072266)
+_ERF_P = [_f32(v) for v in (
+    0.00022905065270606428, 0.0034082909114658833, 0.050955694168806076,
+    0.18520832061767578, 1.1283791065216064)]
+_ERF_Q = [_f32(v) for v in (
+    -1.1791603071742429e-07, 2.354796561121475e-05, 0.0010179625824093819,
+    0.01407046988606453, 0.11098504811525345, 0.4974692463874817, 1.0)]
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 erf."""
+    x = x.float().clamp(-_ERF_CLAMP, _ERF_CLAMP)
+    x2 = x * x
+    p = fma(x2, _ERF_P[0], _ERF_P[1])
+    for c in _ERF_P[2:]:
+        p = fma(p, x2, c)
+    q = fma(x2, _ERF_Q[0], _ERF_Q[1])
+    for c in _ERF_Q[2:]:
+        q = fma(q, x2, c)
+    return (x * p) / q
+
+
+# XLA:CPU's float32 log1p: for |x| < √2 − 1 the rational
+# x − x²/2 + x³·N(x)/D(x) (Horner steps contracted into FMAs), else
+# log(1 + x).
+_LOG1P_SMALL = _f32(0.4142135679721832)
+_LOG1P_N = [_f32(v) for v in (
+    4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
+    29.91191864013672, 60.949668884277344, 57.11296463012695,
+    20.039552688598633)]
+_LOG1P_D = [_f32(v) for v in (
+    15.062909126281738, 83.04756927490234, 221.7624053955078,
+    309.0987243652344, 216.42788696289062, 60.11865997314453)]
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 log1p, for x in (−1, ∞) (finite)."""
+    x = x.float()
+    x2 = x * x
+    n = torch.full_like(x, _LOG1P_N[0])
+    for c in _LOG1P_N[1:]:
+        n = fma(n, x, c)
+    d = torch.ones_like(x)
+    for c in _LOG1P_D:
+        d = fma(d, x, c)
+    small = fma(x2, -0.5, (x * x2) * (n / d)) + x
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(1.0 + x))
+
+
+# Giles' single-precision erf_inv, as XLA lowers chlo.erf_inv:
+# w = −log1p(−x²); t = w − 2.5 (w < 5) or √w − 3; x·P(t), every Horner
+# step an FMA.
+_ERFINV_LT = [_f32(v) for v in (
+    2.810226362726098e-08, 3.432739390518691e-07, -3.523387704262859e-06,
+    -4.391506536194356e-06, 0.00021858086984138936, -0.001253725029528141,
+    -0.004177681636065245, 0.24664072692394257, 1.5014094114303589)]
+_ERFINV_GE = [_f32(v) for v in (
+    -0.0002002142573473975, 0.0001009505576803349, 0.0013493432197719812,
+    -0.003673428436741233, 0.005739507731050253, -0.007622461300343275,
+    0.00943887047469616, 1.0016740560531616, 2.832976818084717)]
+
+
+def erf_inv_poly(x: torch.Tensor) -> torch.Tensor:
+    """``P(t)`` of :func:`erf_inv` (so that ``erf_inv(x) = x·P``)."""
+    x = x.float()
+    lg = log1p(x * -x)
+    lt = lg > -5.0
+    # IEEE sqrt: via float64 (torch's float32 sqrt on the CPU can be off
+    # by one ULP; the float64 root rounds to the correctly rounded one)
+    root = torch.sqrt(-lg.double()).float()
+    t = torch.where(lt, -2.5 - lg, root - 3.0)
+
+    def coef(i):
+        return torch.where(lt, _ERFINV_LT[i], _ERFINV_GE[i])
+
+    p = fma(coef(0), t, coef(1))
+    for i in range(2, 9):
+        p = fma(t, p, coef(i))
+    return p
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 erf_inv, for x in (−1, 1)."""
+    return x.float() * erf_inv_poly(x)

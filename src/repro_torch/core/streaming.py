@@ -35,6 +35,9 @@ import torch
 
 from repro_torch.core import fp32
 
+# The reference's default tile: a chunk this size fits its packed int32
+# single-operand sort for domains up to n = 2^16 (n·chunk < 2^31).
+DEFAULT_CHUNK = 1 << 14
 
 # ---------------------------------------------------------------------------
 # The primitive: merge two sorted runs without a comparator sort.

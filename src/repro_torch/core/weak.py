@@ -339,6 +339,15 @@ def make_class(name: str, *, n: int = 0, num_features: int = 0,
     raise ValueError(f"unknown hypothesis class {name!r}")
 
 
+def erm_batch(cls, xs: torch.Tensor, ys: torch.Tensor, w: torch.Tensor):
+    """ERM over a leading batch (task) axis: xs [B, c(, F)], ys/w
+    [B, c] → (params [B, P], loss [B]).  Every ERM of the port already
+    takes the task axis; a padded example carries w = 0 and changes no
+    candidate's error, and an all-zero-weight row gives loss 0 and a
+    finite first candidate (the reference's padding contract)."""
+    return cls.erm(xs, ys, w)
+
+
 def ensemble_predict(cls, hyp_params: torch.Tensor, rounds: int,
                      x: torch.Tensor) -> torch.Tensor:
     """g(x) = sign(Σ_{t<rounds} h_t(x)); sign(0) := +1.  ``x`` holds

@@ -29,17 +29,24 @@ def update_hits(hits: torch.Tensor, correct: torch.Tensor,
     return hits + (correct & alive).to(hits.dtype)
 
 
-def log_weight_sum(hits: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+def log_weight_sum(hits: torch.Tensor, alive: torch.Tensor,
+                   jitted: bool = False) -> torch.Tensor:
     """log2 Σ_{alive} 2^{−hits} over the last axis, max-shifted as the
-    reference computes it; −inf for an all-dead row.  The engine reads
-    the shifted sum from the mw_update kernel instead
-    (:func:`log_wsums_from_sums`)."""
+    reference computes it; −inf for an all-dead row.  ``jitted`` gives
+    the reference's value inside a compiled program, where XLA:CPU
+    fuses ``mx + log(s)·(1/ln 2)`` into one FMA; eagerly the two round
+    apart.  The engine reads the shifted sum from the mw_update kernel
+    instead (:func:`log_wsums_from_sums`)."""
     logw = torch.where(alive, -hits.float(), -math.inf)
     mx = logw.amax(dim=-1, keepdim=True)
     finite = torch.isfinite(mx)
     mx_safe = torch.where(finite, mx, 0.0)
-    s = fp32.sum_(fp32.exp2(logw - mx_safe))[..., None]
-    out = mx_safe + fp32.log2(torch.clamp(s, min=1e-30))
+    s = torch.clamp(fp32.sum_(fp32.exp2(logw - mx_safe))[..., None],
+                    min=1e-30)
+    if jitted:
+        out = fp32.fma(fp32.log(s), fp32.INV_LN2, mx_safe)
+    else:
+        out = mx_safe + fp32.log2(s)
     return torch.where(finite, out, -math.inf)[..., 0]
 
 
@@ -87,6 +94,15 @@ def normalized_log_probs(hits: torch.Tensor, alive: torch.Tensor,
     :func:`log_wsums_from_sums`, the reference's max-shifted form."""
     logw = torch.where(alive, -hits.float(), -math.inf)
     return logw - log_wsum[..., None]
+
+
+def probs(hits: torch.Tensor, alive: torch.Tensor,
+          jitted: bool = False) -> torch.Tensor:
+    """The paper's p_t over the last axis: ``2^(−hits − log2 W)`` (0 on
+    dead entries), with the reference's max-shifted log2 W
+    (``jitted``: as in a compiled program, :func:`log_weight_sum`)."""
+    return fp32.exp2(normalized_log_probs(
+        hits, alive, log_weight_sum(hits, alive, jitted)))
 
 
 def mixture_weights(log_wsums: torch.Tensor) -> torch.Tensor:

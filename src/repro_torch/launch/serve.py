@@ -135,16 +135,24 @@ def _launches(workload: str) -> dict:
 
 def run_lm(args):
     """Prefill B random prompts and decode ``--gen`` tokens greedily;
-    returns (JSON dict, run) where ``run`` holds the model, params,
-    prompt tokens, the prefill's last-position logits, the generated
-    tokens [B, gen + 1] (on the CPU) and the last decode logits."""
+    returns (JSON dict, run) where ``run`` holds the model, params (the
+    reference's for ``--seed``), the init's seconds and the device's
+    peak memory after it (None on the CPU), prompt tokens, the
+    prefill's last-position logits, the generated tokens [B, gen + 1]
+    (on the CPU) and the last decode logits."""
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = configs.reduced(cfg)
     model = models.build(cfg, use_flash=True)
     _build_kernels(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
     params = model.init(args.seed, dev)
+    _sync(dev)
+    t_init = time.perf_counter() - t0
+    init_peak = (torch.cuda.max_memory_allocated(dev)
+                 if dev.type == "cuda" else None)
     rng = np.random.default_rng(args.seed)
     B, P = args.batch, args.prompt_len
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, P)),
@@ -180,7 +188,8 @@ def run_lm(args):
         "device": dev.type, "flash": model.use_flash,
         "kernel_launches": _launches("lm"),
     }
-    run = SimpleNamespace(model=model, params=params, tokens=tokens,
+    run = SimpleNamespace(model=model, params=params, init_s=t_init,
+                          init_peak_bytes=init_peak, tokens=tokens,
                           prefill_logits=prefill_logits, generated=gen,
                           logits=logits)
     return result, run

@@ -26,21 +26,24 @@ import math
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 
 
-def init(gen: torch.Generator, cfg) -> dict:
+def init(key: torch.Tensor, cfg) -> dict:
+    """The reference's ``split(key, 6)``: keys 0–3 draw wq, wk, wv, wo."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    p = {"wq": L.linear_init(gen, D, H * hd, bias=cfg.attn_bias),
-         "wk": L.linear_init(gen, D, KV * hd, bias=cfg.attn_bias),
-         "wv": L.linear_init(gen, D, KV * hd, bias=cfg.attn_bias),
-         "wo": L.linear_init(gen, H * hd, D, bias=cfg.attn_bias)}
+    ks = prng.split(key, 6)
+    p = {"wq": L.linear_init(ks[0], D, H * hd, bias=cfg.attn_bias),
+         "wk": L.linear_init(ks[1], D, KV * hd, bias=cfg.attn_bias),
+         "wv": L.linear_init(ks[2], D, KV * hd, bias=cfg.attn_bias),
+         "wo": L.linear_init(ks[3], H * hd, D, bias=cfg.attn_bias)}
     if cfg.qk_norm:
-        p["q_norm"] = L.rmsnorm_init(hd, gen.device)
-        p["k_norm"] = L.rmsnorm_init(hd, gen.device)
+        p["q_norm"] = L.rmsnorm_init(hd, key.device)
+        p["k_norm"] = L.rmsnorm_init(hd, key.device)
     return p
 
 

@@ -4,34 +4,39 @@ the port of ``repro.models.layers``.
 Plain functions on dicts of tensors, as in the reference: parameters
 are stored float32, and the forward pass runs in bf16 (each product
 casts its input and its weight to bf16 and returns bf16), with the
-norms and RoPE computed in float32.  ``init`` functions take an
-explicit ``torch.Generator``; the tensors land on its device.
+norms and RoPE computed in float32.  ``init`` functions take a
+threefry key (:mod:`repro_torch.core.prng`, ``[2]`` int64 words) and
+walk the reference's key tree, so a seed gives the reference's
+parameters bit for bit; the tensors land on the key's device.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import prng
 
 BF16 = torch.bfloat16
 
 
-def normal(gen: torch.Generator, shape, scale: float = 0.02) -> torch.Tensor:
-    """``scale`` × a standard normal truncated to [−2, 2], float32 on
-    the generator's device (the reference's ``_normal``)."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    return torch.nn.init.trunc_normal_(t, 0.0, scale, -2.0 * scale,
-                                       2.0 * scale, generator=gen)
+def normal(key: torch.Tensor, shape, scale: float = 0.02) -> torch.Tensor:
+    """``scale`` × ``jax.random.truncated_normal(key, −2, 2, shape)``,
+    float32 on the key's device (the reference's ``_normal``: the draw
+    is jax's jitted function, the product one eager float32 multiply)."""
+    t = prng.truncated_normal(key, -2.0, 2.0, shape)
+    return t.mul_(float(np.float32(scale)))
 
 
-def linear_init(gen, in_dim: int, out_dim: int, bias: bool = False,
+def linear_init(key, in_dim: int, out_dim: int, bias: bool = False,
                 scale: float = 0.02) -> dict:
-    p = {"w": normal(gen, (in_dim, out_dim), scale)}
+    p = {"w": normal(key, (in_dim, out_dim), scale)}
     if bias:
         p["b"] = torch.zeros((out_dim,), dtype=torch.float32,
-                             device=gen.device)
+                             device=key.device)
     return p
 
 
@@ -72,10 +77,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp_init(gen, d_model: int, d_ff: int) -> dict:
-    return {"wg": linear_init(gen, d_model, d_ff),
-            "wu": linear_init(gen, d_model, d_ff),
-            "wd": linear_init(gen, d_ff, d_model)}
+def mlp_init(key, d_model: int, d_ff: int) -> dict:
+    kg, ku, kd = prng.split(key, 3)
+    return {"wg": linear_init(kg, d_model, d_ff),
+            "wu": linear_init(ku, d_model, d_ff),
+            "wd": linear_init(kd, d_ff, d_model)}
 
 
 def mlp(p: dict, x: torch.Tensor, dtype=BF16) -> torch.Tensor:
@@ -85,8 +91,8 @@ def mlp(p: dict, x: torch.Tensor, dtype=BF16) -> torch.Tensor:
     return linear(p["wd"], g * u, dtype)
 
 
-def embed_init(gen, vocab: int, d_model: int) -> dict:
-    return {"emb": normal(gen, (vocab, d_model), 0.02)}
+def embed_init(key, vocab: int, d_model: int) -> dict:
+    return {"emb": normal(key, (vocab, d_model), 0.02)}
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype=BF16) -> torch.Tensor:

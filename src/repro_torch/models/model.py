@@ -1,10 +1,17 @@
-"""Top-level model API — the port of ``repro.models.model`` for serving.
+"""Top-level model API — the port of ``repro.models.model`` (dense
+family).
 
-``build(cfg, use_flash)`` returns a :class:`Model` with ``init``,
-``logits``, ``make_prefill_step`` and ``make_decode_step``, as in the
-reference.  Training (``loss_fn``, ``make_train_step``), the serving
-cache spec (``init_serve_cache``) and the encoder-decoder branches wait
-(ROADMAP queue 1, item 15).
+``build(cfg, use_flash)`` returns a :class:`Model` with ``init`` (the
+reference's parameters for a seed, bit for bit), ``logits``,
+``loss_fn``, ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step``, as in the reference.  The resilient-boosting hook:
+``train_step`` takes a per-example weight vector and an alive mask (the
+multiplicative-weights state of :mod:`repro_torch.core.resilient`) and
+weighs the per-example loss with them.  Gradients come from
+``torch.autograd`` through the einsum attention path: the reference
+trains with ``use_flash=False``, so the trainer runs no flash kernel.
+The serving cache spec (``init_serve_cache``) and the encoder-decoder
+branches wait (ROADMAP queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -14,8 +21,19 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.optim import adamw
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL with masking: logits float32 [B, S, V], labels
+    [B, S] → [B, S]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold) * mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,18 +42,64 @@ class Model:
     use_flash: bool = False
 
     def init(self, seed: int = 0, device=None) -> dict:
-        """Random parameters from ``torch.Generator(device).manual_seed
-        (seed)``, on ``device`` (``cuda`` unless the caller asks for
-        the CPU).  They are not the reference's numbers for the same
-        seed: a test carries the reference's params over with
-        :func:`repro_torch.convert.lm_params_from_jax`."""
+        """The reference's ``init(jax.random.key(seed))``, bit for bit,
+        on ``device`` (``cuda`` unless the caller asks for the CPU)."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_params(gen, self.cfg)
+        return transformer.init_params(prng.key(seed, dev), self.cfg)
 
     def logits(self, params, batch):
         return transformer.forward(params, self.cfg, batch["tokens"],
                                    use_flash=self.use_flash)
+
+    def loss_fn(self, params, batch):
+        """Weighted LM loss.  batch: tokens/labels/loss_mask [B, S],
+        weights [B] (MW weights), alive [B] (quarantine mask) →
+        (loss + aux, metrics)."""
+        logits, aux = self.logits(params, batch)
+        labels = batch["labels"]
+        mask = batch["loss_mask"].float()
+        nll = cross_entropy(logits, labels, mask)               # [B, S]
+        per_example = nll.sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
+        w = (batch["weights"] * batch["alive"]).float()
+        w = w / torch.clamp(w.sum(), min=1e-9)
+        loss = torch.sum(per_example * w)
+        metrics = {"loss": loss, "aux_loss": aux,
+                   "per_example_nll": per_example, "tokens": mask.sum()}
+        return loss + aux, metrics
+
+    def make_train_step(self, *, lr: float = 3e-4, warmup: int = 100,
+                        total_steps: int = 10_000, clip: float = 1.0):
+        """``train_step(params, opt_state, batch) → (params, opt_state,
+        metrics)``: autograd gradients, global-norm clipping, AdamW at
+        the warmup-cosine rate of the step.  The metrics are detached
+        tensors on the parameters' device.  A model built with
+        ``use_flash`` refuses: the flash kernel has no backward pass
+        (nor has the reference's)."""
+        if self.use_flash:
+            raise ValueError("training runs the einsum attention path: "
+                             "build the model with use_flash=False")
+
+        def train_step(params, opt_state, batch):
+            leaves = adamw.tree_leaves(params)
+            ids = {id(p): i for i, p in enumerate(leaves)}
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            tracked = adamw.tree_map(lambda p: live[ids[id(p)]], params)
+            (total, metrics) = self.loss_fn(tracked, batch)
+            grads = torch.autograd.grad(total, live)
+            gtree = adamw.tree_map(lambda p: grads[ids[id(p)]], params)
+            gtree, gnorm = adamw.clip_by_global_norm(gtree, clip)
+            lr_t = adamw.linear_warmup_cosine(
+                opt_state["step"] + 1, lr, warmup, total_steps).to(
+                    leaves[0].device)
+            with torch.no_grad():
+                new_params, new_opt = adamw.adamw_update(
+                    params, gtree, opt_state, lr=lr_t)
+            metrics = {k: v.detach() if torch.is_tensor(v) else v
+                       for k, v in metrics.items()}
+            metrics.update(grad_norm=gnorm, lr=lr_t)
+            return new_params, new_opt, metrics
+
+        return train_step
 
     def make_prefill_step(self, window: int = 0):
         cfg = self.cfg

@@ -4,8 +4,8 @@
 The reference stacks each pattern position's parameters on a leading
 [num_superblocks] axis and drives them with ``jax.lax.scan``; the port
 keeps one parameter dict per layer in ``params["blocks"]`` and loops
-over them.  There is no remat (the serving path keeps no activations
-for a backward pass).  Only the dense pattern ``(("attn", "mlp"),)``
+over them; ``cfg.remat`` recomputes each layer in a training backward
+pass (``torch.utils.checkpoint``).  Only the dense pattern ``(("attn", "mlp"),)``
 runs; MoE, SSM, xLSTM and hybrid patterns raise.
 
 Modes:
@@ -18,7 +18,9 @@ Modes:
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import prng
 from repro_torch.models import attention, layers as L
 
 DENSE = (("attn", "mlp"),)
@@ -35,22 +37,28 @@ def check_dense(cfg) -> None:
             f"(ROADMAP queue 1, item 15)")
 
 
-def _block_init(gen, cfg) -> dict:
-    return {"norm1": L.rmsnorm_init(cfg.d_model, gen.device),
-            "mixer": attention.init(gen, cfg),
-            "norm2": L.rmsnorm_init(cfg.d_model, gen.device),
-            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff)}
+def _block_init(key, cfg) -> dict:
+    km, kf = prng.split(key)
+    return {"norm1": L.rmsnorm_init(cfg.d_model, key.device),
+            "mixer": attention.init(km, cfg),
+            "norm2": L.rmsnorm_init(cfg.d_model, key.device),
+            "ffn": L.mlp_init(kf, cfg.d_model, cfg.d_ff)}
 
 
-def init_params(gen: torch.Generator, cfg) -> dict:
-    """Random parameters (float32, on the generator's device)."""
+def init_params(key: torch.Tensor, cfg) -> dict:
+    """Parameters (float32, on the key's device) along the reference's
+    key tree: ``split(key, pattern_len + 3)``; layer l of the (single)
+    pattern position draws from ``split(ks[0], num_layers)[l]`` as the
+    reference's ``vmap`` over layer keys does; ``ks[-3]`` the
+    embedding, ``ks[-2]`` the untied head."""
     check_dense(cfg)
-    params = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model),
-              "blocks": [_block_init(gen, cfg)
-                         for _ in range(cfg.num_layers)],
-              "final_norm": L.rmsnorm_init(cfg.d_model, gen.device)}
+    ks = prng.split(key, cfg.pattern_len + 3)
+    layer_keys = prng.split(ks[0], cfg.num_superblocks)
+    params = {"embed": L.embed_init(ks[-3], cfg.padded_vocab, cfg.d_model),
+              "blocks": [_block_init(k, cfg) for k in layer_keys],
+              "final_norm": L.rmsnorm_init(cfg.d_model, key.device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.linear_init(gen, cfg.d_model,
+        params["lm_head"] = L.linear_init(ks[-2], cfg.d_model,
                                           cfg.padded_vocab)
     return params
 
@@ -73,15 +81,22 @@ def _logits(params, cfg, h) -> torch.Tensor:
 
 
 def forward(params, cfg, tokens, use_flash=False):
-    """tokens [B, S] → (logits [B, S, Vp] float32, aux 0.0)."""
+    """tokens [B, S] → (logits [B, S, Vp] float32, aux 0.0).  Under
+    autograd with ``cfg.remat`` each layer is recomputed in the
+    backward pass (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of each superblock."""
     check_dense(cfg)
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in params["blocks"]:
-        h, _, _ = _apply_block(p, cfg, h, positions,
-                               window=cfg.sliding_window,
-                               use_flash=use_flash)
+        def layer(hh, p=p):
+            return _apply_block(p, cfg, hh, positions,
+                                window=cfg.sliding_window,
+                                use_flash=use_flash)[0]
+        h = (torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
+             if remat else layer(h))
     return _logits(params, cfg, h), torch.zeros((), device=h.device)
 
 
