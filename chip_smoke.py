@@ -25,6 +25,14 @@ UTMALDG), and drives the port's paths through
   4096), 4 prompts of 2048 tokens prefilled through the flash kernel
   (every launch on its wgmma route) and 32 tokens decoded greedily,
   checked against an einsum prefill of the same params and tokens;
+* the other LM families — granite-moe-3b-a800m at full width and depth
+  (the MoE headline: 32 layers, 40 experts top-8, the same shape, 32
+  flash launches, flash against einsum, a profile with the MoE FFN's
+  share of the device time), then at full width with depth cut to fit
+  the card: jamba-v0.1-52b (one superblock, B = 1), phi3.5-moe and
+  pixtral-12b (2 layers; pixtral's 1024 prefix positions put flash at
+  hd 160), seamless-m4t-medium (12 + 12 layers, no flash path) and
+  xlstm-1.3b (16 layers);
 * the scenario path — AxisStumps (F = 8) against the ``boundary``
   adversary, B = 16 tasks of m = 2^16, every finished task held to
   E_S(f) ≤ OPT with OPT of all tasks from one stump-kernel launch; and
@@ -86,7 +94,8 @@ HistogramTrees in its three wire modes and on a 240-round thresholds
 run, the scenario reports of ``boundary``, ``byzantine`` and
 ``dropout`` against the CPU's, the sharded engine's (NCCL) against
 the CPU's (gloo) on every field and wire counter, and the card's LM
-logits against the CPU's on reduced deepseek-7b and qwen3-32b.  Prints the card, each
+logits against the CPU's on reduced deepseek-7b, qwen3-32b and the six
+other families.  Prints the card, each
 phase's seconds, the kernels' numbers as one JSON line, and, last, one
 JSON object with ``"ok": true``.  Any failed check exits
 non-zero before that line; so does a host with no CUDA device.
@@ -143,8 +152,14 @@ FLASH_MAIN = (4, 2048, 32, 32, 128)
 FLASH_QWEN = (1, 2048, 64, 8, 80)
 # bf16 only (the wgmma route): then S under 64, hd 256 (the widest
 # tile plan) and G = 8 at hd 128
+# the MoE headline's prefill (granite-moe-3b-a800m: GQA 24/8, hd 64)
+# and pixtral-12b's (1024 prefix positions + 2048 prompt tokens, GQA
+# 32/8, hd 160: the wgmma route pads it to 192)
+FLASH_MOE = (4, 2048, 24, 8, 64)
+FLASH_PIXTRAL = (4, 3072, 32, 8, 160)
 FLASH_WIDE = [FLASH_MAIN, FLASH_QWEN, (1, 2000, 8, 2, 128),
-              (2, 40, 4, 2, 64), (1, 300, 4, 2, 256), (1, 384, 16, 2, 128)]
+              (2, 40, 4, 2, 64), (1, 300, 4, 2, 256), (1, 384, 16, 2, 128),
+              FLASH_MOE, FLASH_PIXTRAL]
 SCEN_ARGS = ["--workload", "classify", "--cls", "stumps", "--scenario",
              "boundary", "--noise", "8", "--batch", "16", "--m",
              str(1 << 16), "--k", "4", "--features", "8", "--coreset",
@@ -249,6 +264,29 @@ SEMI = dict(n=1 << 16, m=1 << 16, k=4, noise=8, coreset=100, budget=16)
 DISJ = dict(n=1 << 12, k=2, coreset=400, r=512, weight=256)
 FINITE = dict(n=1 << 12, H=512, m=1 << 20, k=4)
 LM_REL_L2_GATE = 5e-2              # flash vs einsum prefill, last-token logits
+# the MoE headline: granite-moe-3b-a800m at full width and depth (32
+# layers, d_model 1536, 40 experts top-8 of d_ff 512)
+LM_MOE_ARGS = with_flags(LM_ARGS, arch="granite-moe-3b-a800m")
+# the other families at full width: arch → (layers, or None for full
+# depth; batch; prompt; generated).  jamba's one superblock (7 Mamba
+# layers, 1 attention, 4 MoE FFNs of 16 experts) holds 1.33·10^10
+# float32 parameters, 53 GB; phi3.5-moe and pixtral keep 2 layers; the
+# encoder-decoder runs all 12 + 12; xLSTM 2 superblocks (16 layers, 2
+# of them sLSTM)
+FAMILY_RUNS = {"jamba-v0.1-52b": (8, 1, 2048, 16),
+               "phi3.5-moe-42b-a6.6b": (2, 4, 2048, 16),
+               "pixtral-12b": (2, 4, 2048, 16),
+               "seamless-m4t-medium": (None, 4, 2048, 32),
+               "xlstm-1.3b": (16, 4, 2048, 32)}
+FAMILIES = ("granite-moe-3b-a800m",) + tuple(FAMILY_RUNS)
+# the 8-layer reduced stacks whose bf16 logits drift past LM_TOL between
+# two summation orders (ROADMAP queue 3, "bf16 noise at depth")
+DEPTH_NOISE = ("jamba-v0.1-52b", "xlstm-1.3b")
+# the fields that fix a config's width (what a depth cut keeps)
+WIDTHS = ("d_model", "num_heads", "num_kv_heads", "hd", "d_ff",
+          "expert_d_ff", "num_experts", "experts_per_token", "vocab_size",
+          "block_pattern", "encoder_layers", "frontend_tokens",
+          "ssm_state_dim", "ssm_conv_width", "ssm_expand")
 
 
 T0 = time.perf_counter()
@@ -1749,11 +1787,12 @@ def phase_flash(ops, kernel, build) -> dict:
     """The flash kernel against its plain version (full softmax in
     float32) at the reference's sweep in both types (float32 on the
     CUDA-core route at 2e-5, bf16 on the wgmma route at 2e-2), the LM
-    slice's shape, qwen3-32b's widths, a ragged S, S under 64, hd 256
-    and G = 8; the SASS of the wgmma route; timed at the slice's shape
-    and qwen3-32b's beside the plain version and SDPA, and the float32
-    route at the slice's shape.  Returns its JSON entry (without
-    launches)."""
+    slice's shape, qwen3-32b's widths, a ragged S, S under 64, hd 256,
+    G = 8, the MoE headline's prefill and pixtral-12b's (hd 160); the
+    SASS of the wgmma route; timed at the slice's shape, qwen3-32b's,
+    the headline's and pixtral's beside the plain version and SDPA, and
+    the float32 route at the slice's shape.  Returns its JSON entry
+    (without launches)."""
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     cases = [(shape, dt, w) for shape in FLASH_SWEEP for dt in tol
              for w in (0, 48)]
@@ -1778,6 +1817,8 @@ def phase_flash(ops, kernel, build) -> dict:
     main = time_flash(ops, kernel, FLASH_MAIN, torch.bfloat16, seed=7)
     qwen = time_flash(ops, kernel, FLASH_QWEN, torch.bfloat16, seed=8)
     fp32 = time_flash(ops, kernel, FLASH_MAIN, torch.float32, seed=9)
+    moe = time_flash(ops, kernel, FLASH_MOE, torch.bfloat16, seed=10)
+    pixtral = time_flash(ops, kernel, FLASH_PIXTRAL, torch.bfloat16, seed=11)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -1788,7 +1829,8 @@ def phase_flash(ops, kernel, build) -> dict:
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "kernel_route": main["kernel_route"],
             "share_of_bound": main["share_of_bound"], "path": "lm",
-            "paths": {"lm": main}, "qwen3_32b_widths": qwen,
+            "paths": {"lm": main, "lm_moe": moe, "pixtral-12b": pixtral},
+            "qwen3_32b_widths": qwen,
             "float32_route": fp32, "sass": sass}
 
 
@@ -1813,118 +1855,200 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def phase_lm_slice(serve, models, layers) -> tuple[dict, dict]:
-    """deepseek-7b at full width and depth through ``serve --workload
-    lm``: every kernel's count set to 0 just before and read just after
-    (one flash launch per layer of the one prefill, every one on the
-    wgmma route); finite logits and tokens; the flash prefill's
-    last-token logits against an einsum prefill of the same params and
-    tokens, and both against a prefill with float32 products; a profile
-    of one prefill and a few decode steps, with flash's share of the
-    prefill's device time.  Returns the launches and flash's launches
-    per route."""
-    from torch.profiler import ProfilerActivity, profile
-
-    args = serve.build_parser().parse_args(LM_ARGS)
-    flash_ops = serve.KERNELS["flash_attention"][1]
-    for _, ops in serve.KERNELS.values():
-        ops.launches = 0
-    flash_ops.route_launches = dict.fromkeys(flash_ops.route_launches, 0)
-    torch.cuda.reset_peak_memory_stats()
-    out, run = serve.run_lm(args)
-    launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
-    routes = dict(flash_ops.route_launches)
-    peak = torch.cuda.max_memory_allocated()
-    log("lm slice:", json.dumps(out))
+def phase_lm_slice(serve, models, layers, transformer, adamw, argv, name,
+                   expect, moe=None) -> tuple[dict, dict]:
+    """An LM at full width and depth through ``serve --workload lm``
+    (:func:`drive_lm`: one flash launch per attention layer, every one
+    on the wgmma route, no other kernel; finite logits and tokens); its
+    config fields equal to ``expect``; the flash prefill's last-token
+    logits against an einsum prefill of the same params and batch, and
+    both against a prefill with float32 products; a profile of one
+    prefill and a few decode steps, with flash's share of the device
+    time (and the MoE FFN's, given the ``moe`` module).  Returns the
+    launches and flash's launches per route."""
+    run, launches, routes = drive_lm(serve, transformer, adamw, argv, name)
     cfg = run.model.cfg
-    check(out["kernel_launches"]["flash_attention"]
-          == launches["flash_attention"] == cfg.num_layers,
-          f"lm slice: flash launches {launches} != {cfg.num_layers} layers")
-    check(routes == {"wgmma": cfg.num_layers, "cuda_cores": 0},
-          f"lm slice: flash routes {routes}, not all {cfg.num_layers} on "
-          f"the wgmma route")
-    check(launches["mw_update"] == launches["histogram"] == 0,
-          f"lm slice launched a protocol kernel: {launches}")
-    check(cfg.d_model == 4096 and cfg.num_layers == 30,
-          f"lm slice ran {cfg.name}, not deepseek-7b at full size")
-    check(bool(torch.isfinite(run.prefill_logits).all())
-          and bool(torch.isfinite(run.logits).all()),
-          "lm slice: non-finite logits")
-    check(out["tokens_finite"] and run.generated.shape == (
-        args.batch, args.gen + 1), "lm slice: bad generated tokens")
-    params = run.params
-    log(f"lm slice: init (the reference's parameters for seed "
-        f"{args.seed}, {cfg.param_count()} truncated-normal draws) "
-        f"{run.init_s:.2f} s, max_memory_allocated after it "
-        f"{run.init_peak_bytes} bytes")
-    log(f"lm slice: first 8 generated tokens for seed {args.seed}: "
+    check(all(getattr(cfg, k) == v for k, v in expect.items()),
+          f"{name} ran {cfg.name}, not the config {expect}")
+    log(f"{name}: first 8 generated tokens for seed 0: "
         f"{run.generated[0][:8].tolist()}")
-    log(f"lm slice: {cfg.name} {cfg.param_count()} params, prefill_s "
-        f"{out['prefill_s']} decode_s_per_token "
-        f"{out['decode_s_per_token']} launches {launches} flash routes "
-        f"{routes} max_memory_allocated {peak} bytes")
-    flash_logits, tokens = run.prefill_logits, run.tokens
+    params, batch, flash_logits = run.params, run.batch, run.prefill_logits
     del run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain_logits, caches = models.build(cfg).make_prefill_step()(
-        params, {"tokens": tokens})
+    plain_logits, caches = models.build(cfg).make_prefill_step()(params,
+                                                                 batch)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     del caches
     err = rel_l2(flash_logits, plain_logits)
-    log(f"lm slice: flash vs einsum prefill, last-token logits relative "
-        f"L2 {err:.6g} (gate {LM_REL_L2_GATE}); einsum prefill_s "
-        f"{plain_s:.3f}")
+    log(f"{name}: flash vs einsum prefill, last-token logits relative L2 "
+        f"{err:.6g} (gate {LM_REL_L2_GATE}); einsum prefill_s {plain_s:.3f}")
     check(err <= LM_REL_L2_GATE,
-          f"lm slice: flash vs einsum relative L2 {err} > {LM_REL_L2_GATE}")
+          f"{name}: flash vs einsum relative L2 {err} > {LM_REL_L2_GATE}")
     with float32_products(layers):
-        f32_logits, caches = models.build(cfg).make_prefill_step()(
-            params, {"tokens": tokens})
+        f32_logits, caches = models.build(cfg).make_prefill_step()(params,
+                                                                   batch)
     del caches
     to_f32 = [rel_l2(x, f32_logits) for x in (flash_logits, plain_logits)]
-    log(f"lm slice: against a prefill with float32 products, relative L2 "
-        f"of the last-token logits: flash {to_f32[0]:.6g}, einsum "
+    log(f"{name}: against a prefill with float32 products, relative L2 of "
+        f"the last-token logits: flash {to_f32[0]:.6g}, einsum "
         f"{to_f32[1]:.6g}")
-    # where a prefill's and a decode step's device time goes
-    model = models.build(cfg, use_flash=True)
-    prefill, decode = model.make_prefill_step(), model.make_decode_step()
-    for name, steps in (("prefill", 1), ("decode", 4)):
-        if name == "decode":
-            logits, caches = prefill(params, {"tokens": tokens})
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if name == "prefill":
-                logits, caches = prefill(params, {"tokens": tokens})
-            else:
-                for _ in range(steps):
-                    logits, caches = decode(params, caches, tokens[:, :1])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        del caches
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not rows:
-            log(f"profile lm {name}: wall_ms {wall_ms:.2f} (profiled); "
-                "device time not measured (no kernels recorded)")
-            continue
-        dev_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
-        flash_ms = sum(e.self_device_time_total for e in rows
-                       if "flash_wgmma" in e.key) / steps / 1e3
-        log(f"profile lm {name}: wall_ms/step {wall_ms:.2f} (profiled), "
-            f"device_ms/step {dev_ms:.3f}, device busy share "
-            f"{dev_ms / wall_ms:.3f}, kernels/step "
-            f"{sum(e.count for e in rows) / steps:.0f}; flash (wgmma "
-            f"route) {flash_ms:.3f} ms/step, {flash_ms / dev_ms:.4f} of "
-            f"the device time")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
-                f"x{e.count / steps:5.0f}  {e.key[:90]}")
-    del params, model, logits
+    profile_lm(models, cfg, params, batch, name, moe=moe)
+    del params, batch
     torch.cuda.empty_cache()
     return launches, routes
+
+
+def profile_lm(models, cfg, params, batch, name, moe=None) -> None:
+    """Where a prefill's and a decode step's device time goes (the flash
+    model): wall ms a step (profiled), device ms a step, the device's
+    busy share, kernels a step, flash's share and the top kernels; with
+    ``moe`` (the module), the MoE FFN's share too — the device time of
+    the kernels launched inside a ``record_function`` region around
+    each ``moe.apply`` call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    model = models.build(cfg, use_flash=True)
+    prefill, decode = model.make_prefill_step(), model.make_decode_step()
+    if moe is not None:
+        apply = moe.apply
+
+        def traced(*a, **k):
+            with record_function("moe_ffn"):
+                return apply(*a, **k)
+
+        moe.apply = traced
+    try:
+        for step, steps in (("prefill", 1), ("decode", 4)):
+            if step == "decode":
+                logits, caches = prefill(params, batch)
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if step == "prefill":
+                    logits, caches = prefill(params, batch)
+                else:
+                    for _ in range(steps):
+                        logits, caches = decode(params, caches,
+                                                batch["tokens"][:, :1])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            del caches, logits
+            events = prof.key_averages()
+            cuda = torch.autograd.DeviceType.CUDA
+            # the region shows as a CPU range and, on the GPU timeline,
+            # as an annotation span: kernels are the other CUDA rows
+            region = [e for e in events if e.key == "moe_ffn"]
+            rows = [e for e in events
+                    if e.device_type == cuda and e.key != "moe_ffn"]
+            if not rows:
+                log(f"profile {name} {step}: wall_ms {wall_ms:.2f} "
+                    "(profiled); device time not measured (no kernels "
+                    "recorded)")
+                continue
+            dev_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
+            flash_ms = sum(e.self_device_time_total for e in rows
+                           if "flash_wgmma" in e.key) / steps / 1e3
+            msg = (f"profile {name} {step}: wall_ms/step {wall_ms:.2f} "
+                   f"(profiled), device_ms/step {dev_ms:.3f}, device busy "
+                   f"share {dev_ms / wall_ms:.3f}, kernels/step "
+                   f"{sum(e.count for e in rows) / steps:.0f}; flash (wgmma "
+                   f"route) {flash_ms:.3f} ms/step, "
+                   f"{flash_ms / dev_ms:.4f} of the device time")
+            if moe is not None:
+                # the kernels launched in the region; else its GPU span
+                inner = sum(e.device_time_total for e in region
+                            if e.device_type != cuda)
+                span = sum(e.self_device_time_total for e in region
+                           if e.device_type == cuda)
+                moe_ms = (inner or span) / steps / 1e3
+                msg += (f"; MoE FFN {moe_ms:.3f} ms/step "
+                        f"({'its kernels' if inner else 'its GPU span'}), "
+                        f"{moe_ms / dev_ms:.4f} of the device time" if moe_ms
+                        else "; MoE FFN share not measured (the region "
+                             "holds no device time)")
+            log(msg)
+            for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"  {e.self_device_time_total / steps / 1e3:8.3f} "
+                    f"ms/step x{e.count / steps:5.0f}  {e.key[:90]}")
+    finally:
+        if moe is not None:
+            moe.apply = apply
+
+
+def flash_per_prefill(cfg, transformer) -> int:
+    """Flash launches a prefill makes: one per attention layer of a
+    decoder-only stack, none in the encoder-decoder (the reference's
+    enc-dec takes no flash path)."""
+    if cfg.encoder_layers:
+        return 0
+    return sum(m == "attn" for m, _ in transformer.layer_kinds(cfg))
+
+
+def drive_lm(serve, transformer, adamw, argv, name, cfg=None):
+    """``serve.run_lm`` of ``argv`` (``cfg`` cuts depth) with every
+    kernel's count set to 0 just before and read just after: one flash
+    launch per attention layer, every one on the wgmma route, no other
+    kernel; finite logits and tokens.  Logs the init's seconds, the
+    parameters (leaves), prefill_s, decode_s_per_token and peak memory.
+    Returns (run, launches, flash routes)."""
+    args = serve.build_parser().parse_args(argv)
+    flash_ops = serve.KERNELS["flash_attention"][1]
+    zero_counts(serve)
+    flash_ops.route_launches = dict.fromkeys(flash_ops.route_launches, 0)
+    torch.cuda.reset_peak_memory_stats()
+    out, run = serve.run_lm(args, cfg=cfg)
+    launches = kernel_counts(serve)
+    routes = dict(flash_ops.route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name}:", json.dumps(out))
+    cfg = run.model.cfg
+    want = flash_per_prefill(cfg, transformer)
+    check(out["kernel_launches"]["flash_attention"]
+          == launches["flash_attention"] == want,
+          f"{name}: flash launches {launches} != {want} attention layers")
+    check(routes == {"wgmma": want, "cuda_cores": 0},
+          f"{name}: flash routes {routes}, not all {want} on wgmma")
+    check(not any(n for k, n in launches.items() if k != "flash_attention"),
+          f"{name} launched a protocol kernel: {launches}")
+    check(bool(torch.isfinite(run.prefill_logits).all())
+          and bool(torch.isfinite(run.logits).all()),
+          f"{name}: non-finite logits")
+    check(out["tokens_finite"] and run.generated.shape == (
+        args.batch, args.gen + 1), f"{name}: bad generated tokens")
+    leaves = sum(t.numel() for t in adamw.tree_leaves(run.params))
+    log(f"{name}: {cfg.name}, {cfg.num_layers} layers, {leaves} parameters "
+        f"(truncated-normal draws: the leaves; param_count() "
+        f"{cfg.param_count()}); init {run.init_s:.2f} s, "
+        f"max_memory_allocated after it {run.init_peak_bytes} bytes; "
+        f"prefill_s {out['prefill_s']} decode_s_per_token "
+        f"{out['decode_s_per_token']} max_memory_allocated {peak} bytes; "
+        f"flash routes {routes}")
+    return run, launches, routes
+
+
+def phase_lm_families(serve, configs, transformer, adamw) -> dict:
+    """The other families at full width, depth cut to fit the card and
+    the script's time (``FAMILY_RUNS``), each through ``serve.run_lm``
+    with its counts set to 0 just before and read just after; the width
+    fields equal to the full config's.  Returns each run's launches."""
+    runs = {}
+    for arch, (layers, B, P, gen) in FAMILY_RUNS.items():
+        full = configs.get_config(arch)
+        cfg = (full if layers is None
+               else dataclasses.replace(full, num_layers=layers))
+        check(all(getattr(cfg, w) == getattr(full, w) for w in WIDTHS),
+              f"{arch}: a width differs from the full config")
+        argv = with_flags(LM_ARGS, arch=arch, batch=B, prompt_len=P,
+                          gen=gen)
+        run, launches, _ = drive_lm(serve, transformer, adamw, argv,
+                                    f"lm {arch}", cfg=cfg)
+        runs[arch] = launches
+        del run
+        torch.cuda.empty_cache()
+    return runs
 
 
 def kernel_counts(serve) -> dict:
@@ -2116,17 +2240,23 @@ def phase_finite(serve, finite, weak) -> dict:
     return launches
 
 
-def phase_lm_card_vs_cpu(models, configs, flash_ops) -> None:
-    """Reduced deepseek-7b and qwen3-32b: the seed-0 parameters made on
-    the card bit-equal to those made on the CPU; prefill logits and 4
+def phase_lm_card_vs_cpu(models, configs, flash_ops, transformer, frontend,
+                         prng, layers) -> None:
+    """Reduced dense archs (deepseek-7b, qwen3-32b) and every reduced
+    family (MoE, hybrid, xLSTM, vision prefix, encoder-decoder): the
+    seed-0 parameters and the stub frontend's key-1 input made on the
+    card bit-equal to those made on the CPU; prefill logits and 4
     teacher-forced decode steps on the card and on the CPU at the
-    model-path tolerance; flash launches one per layer on the card,
-    none on the CPU."""
+    model-path tolerance; flash launches one per attention layer on the
+    card, none on the CPU.  The 8-layer jamba and xLSTM stacks are held
+    at the tolerance with float32 products on both devices, and in bf16
+    to twice the CPU's own bf16-vs-float32 distance (ROADMAP queue 3,
+    "bf16 noise at depth")."""
     import numpy as np
 
     from repro_torch.optim import adamw
 
-    for arch in ("deepseek-7b", "qwen3-32b"):
+    for arch in ("deepseek-7b", "qwen3-32b") + FAMILIES:
         cfg = configs.reduced(configs.get_config(arch))
         model = models.build(cfg, use_flash=True)
         params = {"cpu": model.init(seed=0, device="cpu"),
@@ -2143,27 +2273,59 @@ def phase_lm_card_vs_cpu(models, configs, flash_ops) -> None:
         B, P, n = 2, 200, 4
         toks = np.random.default_rng(5).integers(
             0, cfg.vocab_size, size=(B, P + n)).astype(np.int32)
-        logits, launches = {}, {}
+        extra = {}
         for dev in ("cuda", "cpu"):
+            key = prng.key(1, dev)
+            if cfg.frontend == "vit_stub":
+                extra[dev] = {"prefix_embeds": frontend.synth_embeds(
+                    key, cfg, B, cfg.frontend_tokens)}
+            elif cfg.encoder_layers:
+                extra[dev] = {"frames": frontend.synth_embeds(key, cfg, B, P)}
+            else:
+                extra[dev] = {}
+        for name, t in extra["cuda"].items():
+            check(torch.equal(t.cpu(), extra["cpu"][name]),
+                  f"lm card vs cpu, {arch}: {name} differ")
+
+        def run_on(dev):
+            """Prefill and n teacher-forced decode steps on ``dev``:
+            (logits [n + 1, B, Vp] on the CPU, flash launches)."""
             flash_ops.launches = 0
             t = torch.as_tensor(toks, device=dev)
-            out, caches = model.make_prefill_step()(params[dev],
-                                                    {"tokens": t[:, :P]})
-            launches[dev] = flash_ops.launches
+            out, caches = model.make_prefill_step()(
+                params[dev], {"tokens": t[:, :P], **extra[dev]})
+            launches = flash_ops.launches
             steps = [out]
             for i in range(P, P + n):
                 out, caches = model.make_decode_step()(params[dev], caches,
                                                        t[:, i:i + 1])
                 steps.append(out)
-            logits[dev] = torch.stack(steps).cpu()
-        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-        check(torch.allclose(logits["cuda"], logits["cpu"], rtol=LM_TOL,
-                             atol=LM_TOL),
+            return torch.stack(steps).cpu(), launches
+
+        (got, on_card), (want, on_cpu) = run_on("cuda"), run_on("cpu")
+        err = (got - want).abs().max().item()
+        want_launches = flash_per_prefill(cfg, transformer)
+        check((on_card, on_cpu) == (want_launches, 0),
+              f"lm card vs cpu, {arch}: flash launches {on_card} on the "
+              f"card, {on_cpu} on the CPU")
+        if arch in DEPTH_NOISE:
+            with float32_products(layers):
+                got32, want32 = run_on("cuda")[0], run_on("cpu")[0]
+            err32 = (got32 - want32).abs().max().item()
+            noise = (want - want32).abs().max().item()
+            check(torch.allclose(got32, want32, rtol=LM_TOL, atol=LM_TOL)
+                  and err <= 2 * noise,
+                  f"lm card vs cpu, {arch}: float32 products differ by "
+                  f"{err32}, bf16 by {err} (the CPU's bf16 noise {noise})")
+            log(f"lm card vs cpu, {cfg.name}: float32 products max_abs_err "
+                f"{err32:.4g} <= {LM_TOL}; bf16 max_abs_err {err:.4g} <= 2 x "
+                f"the CPU's bf16-vs-float32 distance {noise:.4g}; flash "
+                f"launches {on_card}")
+            continue
+        check(torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL),
               f"lm card vs cpu, {arch}: logits differ by {err}")
-        check(launches == {"cuda": cfg.num_layers, "cpu": 0},
-              f"lm card vs cpu, {arch}: flash launches {launches}")
         log(f"lm card vs cpu, {cfg.name}: prefill + {n} decode logits "
-            f"max_abs_err {err:.4g} <= {LM_TOL}; flash launches {launches}")
+            f"max_abs_err {err:.4g} <= {LM_TOL}; flash launches {on_card}")
 
 
 def main() -> int:
@@ -2179,7 +2341,8 @@ def main() -> int:
                                   sharded_batched, streaming, tasks, types,
                                   weak)
     from repro_torch.data import chunks
-    from repro_torch.models import layers
+    from repro_torch.models import frontend, layers, moe, transformer
+    from repro_torch.optim import adamw
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -2261,9 +2424,21 @@ def main() -> int:
     phase("tree profile", phase_profile, batched, serve, prng, tasks,
           TREE_ARGS, "tree", 5)
     # 6. LM serving at full width: this slice's main path
-    lm_launches, lm_routes = phase("lm slice", phase_lm_slice, serve,
-                                   models, layers)
+    lm_launches, lm_routes = phase(
+        "lm slice", phase_lm_slice, serve, models, layers, transformer,
+        adamw, LM_ARGS, "lm slice", {"num_layers": 30, "d_model": 4096})
     entries["flash_attention"]["route_launches"] = lm_routes
+    # 6b. the MoE headline at full width and depth; the other families
+    # at full width, depth cut
+    moe_launches, moe_routes = phase(
+        "lm moe slice", phase_lm_slice, serve, models, layers, transformer,
+        adamw, LM_MOE_ARGS, "lm moe slice",
+        {"num_layers": 32, "d_model": 1536, "num_experts": 40,
+         "experts_per_token": 8, "expert_d_ff": 512}, moe)
+    entries["flash_attention"]["paths"]["lm_moe"]["route_launches"] = \
+        moe_routes
+    family_launches = phase("lm families", phase_lm_families, serve,
+                            configs, transformer, adamw)
     # 7. the scenario path at full size: this slice's main path, then
     # the infrastructure fault at a cut depth
     _, _, scen_launches = phase("scenario slice", phase_scenario, serve,
@@ -2354,7 +2529,7 @@ def main() -> int:
           sharded_batched, prng, tasks, weak)
     phase("scenario card vs cpu", phase_scenario_card_vs_cpu, serve)
     phase("lm card vs cpu", phase_lm_card_vs_cpu, models, configs,
-          flash_ops)
+          flash_ops, transformer, frontend, prng, layers)
     # 12. training and the paper's side results
     train_launches = phase("train slice", phase_train, serve, train,
                            configs)
@@ -2385,7 +2560,8 @@ def main() -> int:
             "serve_stream_tree": tstream_launches,
             "traced_rounds": traced_launches, "train": train_launches,
             "semi_agnostic": semi_launches, "lower_bound": disj_launches,
-            "finite": finite_launches}
+            "finite": finite_launches, "lm_moe": moe_launches,
+            **family_launches}
     for name, entry in entries.items():
         entry["launches"] = runs[entry["path"]][name]
         for path, counts in runs.items():

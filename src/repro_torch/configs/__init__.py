@@ -1,4 +1,4 @@
-"""Architectures the port runs (the dense family), copied from
+"""Per-architecture configs (the assigned pool), copied from
 ``repro.configs``."""
 
 from repro_torch.configs.base import (ASSIGNED_ARCHS, DEFAULT_SWA_WINDOW,

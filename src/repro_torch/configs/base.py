@@ -3,10 +3,9 @@
 
 ``ModelConfig``, ``ShapeConfig``, ``INPUT_SHAPES``, the registry and
 ``reduced`` are the reference's, field for field, so a config named in
-either package describes the same model.  The port registers only the
-architectures it can run (the dense family); asking for another
-assigned one raises.  ``MeshConfig`` (the TPU mesh) has no counterpart
-on one card.
+either package describes the same model; the port registers all ten
+assigned architectures.  ``MeshConfig`` (the TPU mesh) has no
+counterpart on one card.
 """
 
 from __future__ import annotations
@@ -197,11 +196,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         load_all()
-    if name not in _REGISTRY and name in REFERENCE_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: the port runs the dense "
-            f"family {ASSIGNED_ARCHS}; MoE, SSM, xLSTM, enc-dec and the "
-            f"frontend stub wait (ROADMAP queue 1, item 15)")
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
@@ -214,19 +208,15 @@ def all_configs() -> dict:
     return dict(_REGISTRY)
 
 
-# the reference's assigned pool; the port runs the dense family
-REFERENCE_ARCHS = (
+ASSIGNED_ARCHS = (
     "pixtral-12b", "jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b",
     "internlm2-20b", "xlstm-1.3b", "granite-moe-3b-a800m", "qwen3-32b",
     "seamless-m4t-medium", "deepseek-7b", "command-r-35b",
 )
-ASSIGNED_ARCHS = ("internlm2-20b", "qwen3-32b", "deepseek-7b",
-                  "command-r-35b")
 
 
 def load_all() -> None:
-    """Import every per-arch config module the port has (they call
-    ``register``)."""
+    """Import every per-arch config module (they call ``register``)."""
     import importlib
     for arch in ASSIGNED_ARCHS:
         importlib.import_module("repro_torch.configs." + arch.replace(

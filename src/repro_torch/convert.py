@@ -92,24 +92,32 @@ def lm_params_from_jax(tree: dict, cfg, device=None) -> dict:
 
     In the reference every block leaf carries a leading
     [num_superblocks] axis (the vmapped init) and ``blocks`` holds one
-    stack per pattern position; the port keeps one dict per layer.
-    ``linear`` weights are [in, out] in both.  Leaves keep their float32
-    values and land on ``device``."""
+    stack per pattern position; the port keeps one dict per layer,
+    layer s·P + i being superblock s of pattern position i.  The
+    encoder-decoder's ``encoder``/``decoder`` stacks (a leading layer
+    axis) become lists the same way.  ``linear`` weights are [in, out]
+    in both.  Leaves keep their float32 values and land on
+    ``device``."""
     from repro_torch.models import transformer
 
-    transformer.check_dense(cfg)
     dev = resolve_device(device)
 
-    def load(leaf):
+    def load(node, i=None):
+        if isinstance(node, dict):
+            return {k: load(v, i) for k, v in node.items()}
+        leaf = np.asarray(node) if i is None else np.asarray(node)[i]
         return torch.as_tensor(np.array(leaf, dtype=np.float32), device=dev)
 
-    def layer(node, i):
-        if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
-        return load(np.asarray(node)[i])
-
-    (stack,) = tree["blocks"]
-    params = {k: {n: load(v) for n, v in tree[k].items()}
-              for k in ("embed", "final_norm", "lm_head") if k in tree}
-    params["blocks"] = [layer(stack, i) for i in range(cfg.num_layers)]
+    heads = ("embed", "enc_norm", "final_norm", "lm_head")
+    params = {k: load(tree[k]) for k in heads if k in tree}
+    if cfg.encoder_layers:
+        params["encoder"] = [load(tree["encoder"], i)
+                             for i in range(cfg.encoder_layers)]
+        params["decoder"] = [load(tree["decoder"], i)
+                             for i in range(cfg.num_layers)]
+        return params
+    transformer.check_pattern(cfg)
+    P = cfg.pattern_len
+    params["blocks"] = [load(tree["blocks"][layer % P], layer // P)
+                        for layer in range(cfg.num_layers)]
     return params

@@ -19,7 +19,9 @@ the reference's bits on the CPU and the same bits on the card:
 * :func:`log` / :func:`log2` — XLA:CPU's Cephes float32 polynomial
   with its fused multiply-adds; ``log2(x)`` is ``log(x)·(1/ln 2)``;
 * :func:`exp` / :func:`exp2` — the Cephes float32 exp with its fused
-  multiply-adds and flush-to-zero; ``exp2(x)`` is ``exp(x·ln 2)``.
+  multiply-adds and flush-to-zero; ``exp2(x)`` is ``exp(x·ln 2)``;
+* :func:`tanh` / :func:`expm1` — XLA's rational tanh (Eigen's) and
+  ``expm1`` built on it, as XLA:CPU lowers both;
   :data:`EXP2_NEG` tabulates ``exp2(-s)`` for s in [0, 126]: from s = 13
   on these are not exact powers of two, and the quantile coreset's
   levels are built from them.
@@ -303,3 +305,40 @@ def erf_inv_poly(x: torch.Tensor) -> torch.Tensor:
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's float32 erf_inv, for x in (−1, 1)."""
     return x.float() * erf_inv_poly(x)
+
+
+# XLA's float32 tanh (Eigen's rational approximation): x clamped to
+# ±7.9988117, x·N(x²)/D(x²) with every Horner step an FMA; |x| < 0.0004
+# returns x.
+_TANH_CLAMP = _f32(7.99881172180175781)
+_TANH_N = [_f32(v) for v in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03)]
+_TANH_D = [_f32(v) for v in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03)]
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 tanh."""
+    x = x.float()
+    c = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    c2 = c * c
+    n = torch.full_like(x, _TANH_N[0])
+    for v in _TANH_N[1:]:
+        n = fma(c2, n, v)
+    d = torch.full_like(x, _TANH_D[0])
+    for v in _TANH_D[1:]:
+        d = fma(c2, d, v)
+    return torch.where(x.abs() < _f32(0.0004), x, (c * n) / d)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 expm1: ``exp(x) − 1`` for |x| > 1/2, else
+    ``tanh(x/2)·(exp(x) + 1)``; x where x/2 is 0."""
+    x = x.float()
+    e = exp(x)
+    half = x * 0.5
+    out = torch.where(x.abs() > 0.5, e - 1.0, tanh(half) * (e + 1.0))
+    return torch.where(half == 0, x, out)

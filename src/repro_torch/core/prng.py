@@ -17,6 +17,7 @@ bits on the CPU and on the card:
   float32 log, so the Gumbel draws equal the reference's bit for bit;
 * ``uniform``'s ``f·(hi − lo) + lo`` is one FMA, as XLA:CPU contracts
   it;
+* :func:`normal` is ``√2 · erf_inv(uniform(nextafter(−1, 0), 1))``;
 * :func:`truncated_normal` spells out jax's jitted
   ``_truncated_normal`` as XLA:CPU compiles it (its erf, log1p and
   erf_inv polynomials with their fused multiply-adds), drawn in slices
@@ -195,6 +196,17 @@ def truncated_normal(keys: torch.Tensor, lower: float, upper: float,
         z = (u * fp32.erf_inv_poly(u)) * _SQRT2
         out[..., start:start + idx.numel()] = z.clamp(lo_clip, hi_clip)
     return out.reshape(keys.shape[:-1] + shape)
+
+
+_NORMAL_LO = _f32_after(-1.0, 0.0)
+
+
+def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal`` (float32) under every key: ``√2 ·
+    erf_inv(u)`` with u uniform on [nextafter(−1, 0), 1), as jax's
+    jitted ``_normal_real`` computes it on XLA:CPU."""
+    u = uniform(keys, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * fp32.erf_inv(u)
 
 
 def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:

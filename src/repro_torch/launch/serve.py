@@ -1,13 +1,16 @@
 """Serving entry points of the port (counterpart of ``repro.launch.serve``).
 
 * ``--workload lm`` (default) — prefill a batch of random prompts
-  through the dense LM and decode greedily.  It differs from the
-  reference's ``run`` in one deliberate way: the model is
-  ``build(cfg, use_flash=True)``, so prefill attention goes through the
-  flash kernel (the reference's ``run`` builds with ``use_flash=False``
-  and never reaches its Pallas kernel).  ``--smoke`` (on by default, as
-  in the reference) runs ``reduced(cfg)``; ``--no-smoke`` runs the
-  configuration at full width and depth.
+  through the LM of ``--arch`` (any of the ten: dense, MoE, Mamba
+  hybrid, xLSTM, the vision prefix, the encoder-decoder) and decode
+  greedily.  It differs from the reference's ``run`` in one deliberate
+  way: the model is ``build(cfg, use_flash=True)``, so a decoder's
+  causal self-attention in the prefill goes through the flash kernel
+  (the reference's ``run`` builds with ``use_flash=False`` and never
+  reaches its Pallas kernel; the encoder-decoder takes no flash path
+  in either).  ``--smoke`` (on by default, as in the reference) runs
+  ``reduced(cfg)``; ``--no-smoke`` runs the configuration at full
+  width and depth.
 * ``--workload classify`` — a batch of AccuratelyClassify tasks through
   the port's batched engine or, with ``--engine sharded``, over a
   ``torch.distributed`` players group (core/sharded_batched.py: the
@@ -101,6 +104,7 @@ from repro_torch.kernels.mw_update import kernel as mw_kernel
 from repro_torch.kernels.mw_update import ops as mw_ops
 from repro_torch.kernels.stump import kernel as stump_kernel
 from repro_torch.kernels.stump import ops as stump_ops
+from repro_torch.models import frontend
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -133,17 +137,22 @@ def _launches(workload: str) -> dict:
             for name in PATH_KERNELS[workload]}
 
 
-def run_lm(args):
+def run_lm(args, cfg=None):
     """Prefill B random prompts and decode ``--gen`` tokens greedily;
     returns (JSON dict, run) where ``run`` holds the model, params (the
     reference's for ``--seed``), the init's seconds and the device's
-    peak memory after it (None on the CPU), prompt tokens, the
+    peak memory after it (None on the CPU), the prefill batch (prompt
+    tokens, and the stub frontend's ``prefix_embeds`` or ``frames``
+    from ``key(1)``, as the reference's ``run`` draws them), the
     prefill's last-position logits, the generated tokens [B, gen + 1]
-    (on the CPU) and the last decode logits."""
+    (on the CPU) and the last decode logits.  ``cfg`` replaces the
+    configuration ``--arch``/``--smoke`` name (a library caller's cut
+    of depth)."""
     dev = resolve_device(args.device)
-    cfg = configs.get_config(args.arch)
-    if args.smoke:
-        cfg = configs.reduced(cfg)
+    if cfg is None:
+        cfg = configs.get_config(args.arch)
+        if args.smoke:
+            cfg = configs.reduced(cfg)
     model = models.build(cfg, use_flash=True)
     _build_kernels(dev)
     _sync(dev)
@@ -157,13 +166,19 @@ def run_lm(args):
     B, P = args.batch, args.prompt_len
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, P)),
                              dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vit_stub":
+        batch["prefix_embeds"] = frontend.synth_embeds(
+            prng.key(1, dev), cfg, B, cfg.frontend_tokens)
+    if cfg.encoder_layers:
+        batch["frames"] = frontend.synth_embeds(prng.key(1, dev), cfg, B, P)
     prefill = model.make_prefill_step()
     decode = model.make_decode_step()
     for _, ops in KERNELS.values():
         ops.launches = 0
     _sync(dev)
     t0 = time.perf_counter()
-    prefill_logits, caches = prefill(params, {"tokens": tokens})
+    prefill_logits, caches = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = pinned_argmax(prefill_logits, -1)[:, None].to(torch.int32)
@@ -190,6 +205,7 @@ def run_lm(args):
     }
     run = SimpleNamespace(model=model, params=params, init_s=t_init,
                           init_peak_bytes=init_peak, tokens=tokens,
+                          batch=batch,
                           prefill_logits=prefill_logits, generated=gen,
                           logits=logits)
     return result, run

@@ -16,8 +16,9 @@ cache dict is the one returned — where the reference returns a new
 one; the values are the same.
 
 The reference's GSPMD layout hints (``_tp_size``/``_constrain_heads``)
-have no meaning on one card and are left out; cross-attention decode
-waits for the encoder-decoder family.
+have no meaning on one card and are left out.  Cross-attention (the
+encoder-decoder's) has no qk-norm and no RoPE; its decode reads the
+encoder's precomputed K/V.
 """
 
 from __future__ import annotations
@@ -33,15 +34,16 @@ from repro_torch.models import layers as L
 NEG_INF = -1e30
 
 
-def init(key: torch.Tensor, cfg) -> dict:
-    """The reference's ``split(key, 6)``: keys 0–3 draw wq, wk, wv, wo."""
+def init(key: torch.Tensor, cfg, cross: bool = False) -> dict:
+    """The reference's ``split(key, 6)``: keys 0–3 draw wq, wk, wv, wo;
+    qk-norm scales unless ``cross``."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     ks = prng.split(key, 6)
     p = {"wq": L.linear_init(ks[0], D, H * hd, bias=cfg.attn_bias),
          "wk": L.linear_init(ks[1], D, KV * hd, bias=cfg.attn_bias),
          "wv": L.linear_init(ks[2], D, KV * hd, bias=cfg.attn_bias),
          "wo": L.linear_init(ks[3], H * hd, D, bias=cfg.attn_bias)}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = L.rmsnorm_init(hd, key.device)
         p["k_norm"] = L.rmsnorm_init(hd, key.device)
     return p
@@ -174,3 +176,14 @@ def decode_attention(p, cfg, x, cache, *, window=0, use_rope=True):
     v_all[rows, widx] = v_new[:, 0]
     cache["len"] = cache["len"] + 1
     return L.linear(p["wo"], out), cache
+
+
+def cross_decode_attention(p, cfg, x, enc_kv) -> torch.Tensor:
+    """Cross-attention of one decoder token x [B, 1, D] over the
+    encoder's precomputed {"k", "v"} [B, T, KV, hd]: O(T) a token."""
+    B = x.shape[0]
+    q = L.linear(p["wq"], x).reshape(B, 1, cfg.num_heads, cfg.hd)
+    T = enc_kv["k"].shape[1]
+    mask = torch.ones((B, 1, T), dtype=torch.bool, device=x.device)
+    out = gqa_scores_mask(q, enc_kv["k"], enc_kv["v"], mask)
+    return L.linear(p["wo"], out)

@@ -1,5 +1,5 @@
-"""Primitive layers: linear, RMS norm, RoPE, SwiGLU MLP, embeddings —
-the port of ``repro.models.layers``.
+"""Primitive layers: linear, RMS and layer norms, RoPE, SwiGLU MLP,
+embeddings — the port of ``repro.models.layers``.
 
 Plain functions on dicts of tensors, as in the reference: parameters
 are stored float32, and the forward pass runs in bf16 (each product
@@ -56,6 +56,27 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def rms_norm_scaleless(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm without a learned scale."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def layernorm_init(dim: int, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (the population variance, as ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

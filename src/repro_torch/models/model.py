@@ -1,5 +1,7 @@
-"""Top-level model API — the port of ``repro.models.model`` (dense
-family).
+"""Top-level model API — the port of ``repro.models.model``, for every
+family: decoder-only stacks of any block pattern (dense, MoE, Mamba
+hybrid, xLSTM; a vision prefix of frontend embeddings) and the
+encoder-decoder.
 
 ``build(cfg, use_flash)`` returns a :class:`Model` with ``init`` (the
 reference's parameters for a seed, bit for bit), ``logits``,
@@ -10,8 +12,8 @@ multiplicative-weights state of :mod:`repro_torch.core.resilient`) and
 weighs the per-example loss with them.  Gradients come from
 ``torch.autograd`` through the einsum attention path: the reference
 trains with ``use_flash=False``, so the trainer runs no flash kernel.
-The serving cache spec (``init_serve_cache``) and the encoder-decoder
-branches wait (ROADMAP queue 1, item 15).
+``init_serve_cache``/``decode_window`` give the cache of a decode
+shape of ``INPUT_SHAPES``, as the reference's.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (DEFAULT_SWA_WINDOW, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.optim import adamw
 
 
@@ -45,19 +48,30 @@ class Model:
         """The reference's ``init(jax.random.key(seed))``, bit for bit,
         on ``device`` (``cuda`` unless the caller asks for the CPU)."""
         dev = resolve_device(device)
-        return transformer.init_params(prng.key(seed, dev), self.cfg)
+        key = prng.key(seed, dev)
+        if self.cfg.encoder_layers:
+            return encdec.init_params(key, self.cfg)
+        return transformer.init_params(key, self.cfg)
 
     def logits(self, params, batch):
-        return transformer.forward(params, self.cfg, batch["tokens"],
+        cfg = self.cfg
+        if cfg.encoder_layers:
+            return encdec.forward(params, cfg, batch["frames"],
+                                  batch["tokens"])
+        return transformer.forward(params, cfg, batch["tokens"],
+                                   prefix_embeds=batch.get("prefix_embeds"),
                                    use_flash=self.use_flash)
 
     def loss_fn(self, params, batch):
-        """Weighted LM loss.  batch: tokens/labels/loss_mask [B, S],
-        weights [B] (MW weights), alive [B] (quarantine mask) →
-        (loss + aux, metrics)."""
+        """Weighted LM loss.  batch: tokens/labels/loss_mask [B, St],
+        weights [B] (MW weights), alive [B] (quarantine mask), optional
+        prefix_embeds / frames → (loss + aux, metrics).  With a prefix
+        the loss covers the token tail only."""
         logits, aux = self.logits(params, batch)
         labels = batch["labels"]
         mask = batch["loss_mask"].float()
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
         nll = cross_entropy(logits, labels, mask)               # [B, S]
         per_example = nll.sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
         w = (batch["weights"] * batch["alive"]).float()
@@ -102,12 +116,26 @@ class Model:
         return train_step
 
     def make_prefill_step(self, window: int = 0):
+        """``prefill_step(params, batch) → (last logits [B, Vp],
+        caches)``.  The encoder-decoder's caches are (cross, self): each
+        decoder layer's cross K/V over the encoded ``frames`` and an
+        empty self-attention cache of St + 1 slots (len 0), as the
+        reference's."""
         cfg = self.cfg
 
         def prefill_step(params, batch):
+            tokens = batch["tokens"]
+            if cfg.encoder_layers:
+                enc_out = encdec.encode(params, cfg, batch["frames"])
+                cross = encdec.build_cross_cache(params, cfg, enc_out)
+                self_cache = encdec.init_self_cache(
+                    cfg, tokens.shape[0], int(tokens.shape[1]) + 1,
+                    tokens.device)
+                logits, _ = encdec.decode_train(params, cfg, enc_out, tokens)
+                return logits[:, -1], (cross, self_cache)
             logits, _, caches = transformer.prefill(
-                params, cfg, batch["tokens"], use_flash=self.use_flash,
-                window=window)
+                params, cfg, tokens, prefix_embeds=batch.get("prefix_embeds"),
+                use_flash=self.use_flash, window=window)
             return logits, caches
 
         return prefill_step
@@ -116,12 +144,46 @@ class Model:
         cfg = self.cfg
 
         def decode_step(params, caches, tokens):
+            if cfg.encoder_layers:
+                cross, self_cache = caches
+                logits, self_cache = encdec.decode_step(
+                    params, cfg, cross, self_cache, tokens)
+                return logits, (cross, self_cache)
             return transformer.decode_step(params, cfg, caches, tokens,
                                            window=window)
 
         return decode_step
 
+    def init_serve_cache(self, shape: ShapeConfig, filled: bool = True,
+                         device=None):
+        """The cache of decode shape ``shape``; the capacity honours the
+        long-context mode (a ``swa`` arch keeps a ring of
+        ``DEFAULT_SWA_WINDOW`` slots for ``long_500k``).  ``device``
+        ``"meta"`` gives the layout without memory."""
+        cfg = self.cfg
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
+        window = self.decode_window(shape)
+        capacity = min(shape.seq_len, window) if window else shape.seq_len
+        B = shape.global_batch
+        if cfg.encoder_layers:
+            cross = [{n: torch.zeros((B, shape.seq_len, cfg.num_kv_heads,
+                                      cfg.hd), dtype=torch.bfloat16,
+                                     device=dev) for n in "kv"}
+                     for _ in range(cfg.num_layers)]
+            return cross, encdec.init_self_cache(cfg, B, 1024, dev,
+                                                 filled=False)
+        return transformer.init_cache(cfg, B, capacity, dev, filled=filled)
+
+    def decode_window(self, shape: ShapeConfig) -> int:
+        cfg = self.cfg
+        if cfg.sliding_window:
+            return cfg.sliding_window
+        if shape.name == "long_500k" and cfg.long_context_mode == "swa":
+            return DEFAULT_SWA_WINDOW
+        return 0
+
 
 def build(cfg: ModelConfig, use_flash: bool = False) -> Model:
-    transformer.check_dense(cfg)
+    transformer.check_pattern(cfg)
     return Model(cfg=cfg, use_flash=use_flash)

@@ -1,18 +1,25 @@
-"""Decoder-only stack for the dense family — the port of
+"""Decoder-only stack for any block pattern — the port of
 ``repro.models.transformer``.
 
-The reference stacks each pattern position's parameters on a leading
-[num_superblocks] axis and drives them with ``jax.lax.scan``; the port
-keeps one parameter dict per layer in ``params["blocks"]`` and loops
-over them; ``cfg.remat`` recomputes each layer in a training backward
-pass (``torch.utils.checkpoint``).  Only the dense pattern ``(("attn", "mlp"),)``
-runs; MoE, SSM, xLSTM and hybrid patterns raise.
+A *superblock* is one repetition of ``cfg.block_pattern``: a single
+(attn, mlp) or (attn, moe) layer for the dense and MoE archs, eight
+Mamba/attention layers with alternating MLP/MoE FFNs for jamba, eight
+m/sLSTM blocks for xLSTM.  The reference stacks each pattern position's
+parameters on a leading [num_superblocks] axis and drives them with
+``jax.lax.scan``; the port keeps one parameter dict per layer in
+``params["blocks"]``, in the order the reference applies them
+(superblock-major: layer s·P + i is pattern position i of superblock
+s), and loops over them; ``cfg.remat`` recomputes each layer in a
+training backward pass (``torch.utils.checkpoint``).
 
 Modes:
-* ``forward``      — logits over the full sequence.
+* ``forward``      — logits over the full sequence (an optional prefix of
+  frontend embeddings before the tokens) and the summed MoE aux loss.
 * ``prefill``      — forward of the prompt; returns the last position's
-  logits and the KV cache (capacity S, len S).
-* ``decode_step``  — one token against the cache.
+  logits, the aux and one cache per layer of the layer's own kind
+  (attention: K/V of capacity S, len S; Mamba, mLSTM, sLSTM: the
+  recurrent state after position S).
+* ``decode_step``  — one token against the caches.
 """
 
 from __future__ import annotations
@@ -21,41 +28,61 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import prng
-from repro_torch.models import attention, layers as L
+from repro_torch.models import attention, layers as L, moe, ssm, xlstm
 
-DENSE = (("attn", "mlp"),)
-
-
-def check_dense(cfg) -> None:
-    """Raise unless ``cfg`` is a dense decoder the port runs."""
-    if tuple(cfg.block_pattern) != DENSE or cfg.encoder_layers \
-            or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} (encoder "
-            f"layers {cfg.encoder_layers}, frontend {cfg.frontend!r}) is "
-            f"not ported yet; the port runs the dense (attn, mlp) family "
-            f"(ROADMAP queue 1, item 15)")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+SLSTM_STATE = ("h", "c", "n", "m")
 
 
-def _block_init(key, cfg) -> dict:
+def check_pattern(cfg) -> None:
+    """Raise on a mixer or FFN name that the reference has not either."""
+    for mixer, ffn in cfg.block_pattern:
+        if mixer not in MIXERS or ffn not in FFNS:
+            raise ValueError(f"{cfg.name}: block ({mixer!r}, {ffn!r}) is "
+                             f"not a block the model has: mixers "
+                             f"{MIXERS}, FFNs {FFNS}")
+
+
+def layer_kinds(cfg) -> list:
+    """(mixer, ffn) of each layer, in the order they apply."""
+    return [cfg.block_pattern[i % cfg.pattern_len]
+            for i in range(cfg.num_layers)]
+
+
+def _block_init(key, cfg, mixer: str, ffn: str) -> dict:
     km, kf = prng.split(key)
-    return {"norm1": L.rmsnorm_init(cfg.d_model, key.device),
-            "mixer": attention.init(km, cfg),
-            "norm2": L.rmsnorm_init(cfg.d_model, key.device),
-            "ffn": L.mlp_init(kf, cfg.d_model, cfg.d_ff)}
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, key.device)}
+    if mixer == "attn":
+        p["mixer"] = attention.init(km, cfg)
+    elif mixer == "mamba":
+        p["mixer"] = ssm.init(km, cfg)
+    elif mixer == "mlstm":
+        p["mixer"] = xlstm.mlstm_init(km, cfg)
+    else:
+        p["mixer"] = xlstm.slstm_init(km, cfg)
+    if ffn != "none":
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, key.device)
+        p["ffn"] = (L.mlp_init(kf, cfg.d_model, cfg.d_ff) if ffn == "mlp"
+                    else moe.init(kf, cfg))
+    return p
 
 
 def init_params(key: torch.Tensor, cfg) -> dict:
     """Parameters (float32, on the key's device) along the reference's
-    key tree: ``split(key, pattern_len + 3)``; layer l of the (single)
-    pattern position draws from ``split(ks[0], num_layers)[l]`` as the
+    key tree: ``split(key, pattern_len + 3)``; superblock s of pattern
+    position i draws from ``split(ks[i], num_superblocks)[s]``, as the
     reference's ``vmap`` over layer keys does; ``ks[-3]`` the
     embedding, ``ks[-2]`` the untied head."""
-    check_dense(cfg)
-    ks = prng.split(key, cfg.pattern_len + 3)
-    layer_keys = prng.split(ks[0], cfg.num_superblocks)
+    check_pattern(cfg)
+    P = cfg.pattern_len
+    ks = prng.split(key, P + 3)
+    layer_keys = [prng.split(ks[i], cfg.num_superblocks) for i in range(P)]
+    blocks = [_block_init(layer_keys[i][s], cfg, mixer, ffn)
+              for s in range(cfg.num_superblocks)
+              for i, (mixer, ffn) in enumerate(cfg.block_pattern)]
     params = {"embed": L.embed_init(ks[-3], cfg.padded_vocab, cfg.d_model),
-              "blocks": [_block_init(k, cfg) for k in layer_keys],
+              "blocks": blocks,
               "final_norm": L.rmsnorm_init(cfg.d_model, key.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.linear_init(ks[-2], cfg.d_model,
@@ -63,14 +90,36 @@ def init_params(key: torch.Tensor, cfg) -> dict:
     return params
 
 
-def _apply_block(p, cfg, h, positions, *, window, use_flash):
-    """One (attn, mlp) layer on the full sequence: (h, k, v)."""
-    out, k, v = attention.full_attention(
-        p["mixer"], cfg, L.rms_norm(p["norm1"], h, cfg.norm_eps), positions,
-        causal=True, window=window, use_flash=use_flash)
+def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash):
+    """One layer on the full sequence: (h, aux, the layer's cache)."""
+    hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
+    if mixer == "attn":
+        out, k, v = attention.full_attention(
+            p["mixer"], cfg, hn, positions, causal=True, window=window,
+            use_flash=use_flash)
+        cache = {"k": k, "v": v}
+    elif mixer == "mamba":
+        out, cache = ssm.forward(p["mixer"], cfg, hn)
+    elif mixer == "mlstm":
+        out, cache = xlstm.mlstm_forward(p["mixer"], cfg, hn)
+    else:
+        out, cache = xlstm.slstm_forward(p["mixer"], cfg, hn)
     h = h + out
-    h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
-    return h, k, v
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if ffn == "mlp":
+        h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
+    elif ffn == "moe":
+        y, aux = moe.apply(p["ffn"], cfg,
+                           L.rms_norm(p["norm2"], h, cfg.norm_eps))
+        h = h + y
+    return h, aux, cache
+
+
+def _embed(params, tokens, prefix_embeds):
+    h = L.embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def _logits(params, cfg, h) -> torch.Tensor:
@@ -80,67 +129,102 @@ def _logits(params, cfg, h) -> torch.Tensor:
     return L.linear(params["lm_head"], h).float()
 
 
-def forward(params, cfg, tokens, use_flash=False):
-    """tokens [B, S] → (logits [B, S, Vp] float32, aux 0.0).  Under
-    autograd with ``cfg.remat`` each layer is recomputed in the
-    backward pass (``torch.utils.checkpoint``), as the reference's
+def forward(params, cfg, tokens, prefix_embeds=None, use_flash=False):
+    """tokens [B, St] (after ``prefix_embeds`` [B, Sp, D] if given) →
+    (logits [B, Sp + St, Vp] float32, aux summed over layers).  Under
+    autograd with ``cfg.remat`` each layer is recomputed in the backward
+    pass (``torch.utils.checkpoint``), as the reference's
     ``jax.checkpoint`` of each superblock."""
-    check_dense(cfg)
-    h = L.embed(params["embed"], tokens)
+    check_pattern(cfg)
+    h = _embed(params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in params["blocks"]:
-        def layer(hh, p=p):
-            return _apply_block(p, cfg, hh, positions,
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p, (mixer, ffn) in zip(params["blocks"], layer_kinds(cfg)):
+        def layer(hh, p=p, mixer=mixer, ffn=ffn):
+            return _apply_block(p, cfg, mixer, ffn, hh, positions,
                                 window=cfg.sliding_window,
-                                use_flash=use_flash)[0]
-        h = (torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False)
-             if remat else layer(h))
-    return _logits(params, cfg, h), torch.zeros((), device=h.device)
+                                use_flash=use_flash)[:2]
+        h, a = (torch.utils.checkpoint.checkpoint(layer, h,
+                                                  use_reentrant=False)
+                if remat else layer(h))
+        aux = aux + a
+    return _logits(params, cfg, h), aux
 
 
 def init_cache(cfg, batch: int, capacity: int, device,
                dtype=torch.bfloat16, filled: bool = True) -> list:
-    """One empty cache per layer; ``filled`` marks ``capacity`` slots
-    live, as the reference's dry-run decode shapes do."""
-    check_dense(cfg)
+    """One empty cache per layer, of the layer's kind: attention K/V of
+    ``capacity`` slots (``filled`` marks them all live, as the
+    reference's dry-run decode shapes do), a Mamba state (its conv ring
+    in ``dtype``), an mLSTM or sLSTM state."""
+    check_pattern(cfg)
     caches = []
-    for _ in range(cfg.num_layers):
-        c = attention.init_cache(cfg, batch, capacity, device, dtype)
-        if filled:
-            c["len"].fill_(capacity)
+    for mixer, _ in layer_kinds(cfg):
+        if mixer == "attn":
+            c = attention.init_cache(cfg, batch, capacity, device, dtype)
+            if filled:
+                c["len"].fill_(capacity)
+        elif mixer == "mamba":
+            c = ssm.init_state(cfg, batch, dtype, device=device)
+        elif mixer == "mlstm":
+            c = xlstm.mlstm_init_state(cfg, batch, device=device)
+        else:
+            c = dict(zip(SLSTM_STATE,
+                         xlstm.slstm_init_state(cfg, batch, device=device)))
         caches.append(c)
     return caches
 
 
-def prefill(params, cfg, tokens, use_flash=False, window=0):
-    """Forward of the prompt that also returns the serving cache:
-    (last-position logits [B, Vp] float32, aux 0.0, caches)."""
-    check_dense(cfg)
-    h = L.embed(params["embed"], tokens)
+def prefill(params, cfg, tokens, prefix_embeds=None, use_flash=False,
+            window=0):
+    """Forward of the prompt that also returns the serving caches:
+    (last-position logits [B, Vp] float32, aux, caches)."""
+    check_pattern(cfg)
+    h = _embed(params, tokens, prefix_embeds)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
-    for p in params["blocks"]:
-        h, k, v = _apply_block(p, cfg, h, positions,
+    for p, (mixer, ffn) in zip(params["blocks"], layer_kinds(cfg)):
+        h, a, c = _apply_block(p, cfg, mixer, ffn, h, positions,
                                window=window or cfg.sliding_window,
                                use_flash=use_flash)
-        caches.append({"k": k, "v": v, "len": torch.full(
-            (B,), S, dtype=torch.int32, device=h.device)})
+        aux = aux + a
+        if mixer == "attn":
+            c["len"] = torch.full((B,), S, dtype=torch.int32,
+                                  device=h.device)
+        caches.append(c)
     logits = _logits(params, cfg, h[:, -1:])
-    return logits[:, 0], torch.zeros((), device=h.device), caches
+    return logits[:, 0], aux, caches
 
 
 def decode_step(params, cfg, caches, tokens, *, window=0):
     """One-token decode.  tokens [B, 1] → (logits [B, Vp], caches); the
-    caches are updated in place."""
-    check_dense(cfg)
+    list of caches is updated in place (attention K/V in place too)."""
+    check_pattern(cfg)
     h = L.embed(params["embed"], tokens)
-    for p, cache in zip(params["blocks"], caches):
-        out, _ = attention.decode_attention(
-            p["mixer"], cfg, L.rms_norm(p["norm1"], h, cfg.norm_eps), cache,
-            window=window)
+    for i, (p, (mixer, ffn)) in enumerate(zip(params["blocks"],
+                                              layer_kinds(cfg))):
+        hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
+        if mixer == "attn":
+            out, nc = attention.decode_attention(p["mixer"], cfg, hn,
+                                                 caches[i], window=window)
+        elif mixer == "mamba":
+            out, nc = ssm.decode_step(p["mixer"], cfg, hn, caches[i])
+        elif mixer == "mlstm":
+            out, nc = xlstm.mlstm_decode(p["mixer"], cfg, hn, caches[i])
+        else:
+            st = tuple(caches[i][n] for n in SLSTM_STATE)
+            out, st = xlstm.slstm_decode(p["mixer"], cfg, hn, st)
+            nc = dict(zip(SLSTM_STATE, st))
+        caches[i] = nc
         h = h + out
-        h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
+        if ffn == "mlp":
+            h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
+        elif ffn == "moe":
+            y, _ = moe.apply(p["ffn"], cfg,
+                             L.rms_norm(p["norm2"], h, cfg.norm_eps))
+            h = h + y
     return _logits(params, cfg, h)[:, 0], caches

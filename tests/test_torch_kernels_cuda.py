@@ -354,6 +354,34 @@ def test_flash_attention_counts_each_route(card):
                       {"wgmma": 1, "cuda_cores": 0}]
 
 
+# the MoE and vision-prefix families' prefill shapes on the wgmma route:
+# granite-moe-3b-a800m (GQA 24/8, hd 64) and pixtral-12b (1024 prefix
+# positions + 2048 prompt tokens, GQA 32/8, hd 160: padded to 192)
+FAMILY_FLASH_SHAPES = [(4, 2048, 24, 8, 64), (4, 3072, 32, 8, 160),
+                       (1, 300, 32, 8, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_FLASH_SHAPES, ids=str)
+def test_flash_wgmma_at_family_widths(card, shape):
+    """bf16 flash at hd 64 and hd 160 against its plain version at
+    2e-2, one launch on the wgmma route each."""
+    B, S, H, KV, hd = shape
+    g = torch.Generator(device=card).manual_seed(S + hd)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=card)
+               .to(torch.bfloat16) for n in (H, KV, KV))
+    before = dict(flash_ops.route_launches), flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_ops.flash_attention(q, k, v, interpret=True)
+    assert flash_ops.launches == before[1] + 1
+    assert {r: n - before[0][r] for r, n in
+            flash_ops.route_launches.items()} == {"wgmma": 1,
+                                                  "cuda_cores": 0}
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("weights", ["pm1", "dyadic", "float"])
 @pytest.mark.parametrize("shape", STUMP_SHAPES, ids=str)

@@ -1,4 +1,7 @@
-"""The port's LM substrate (dense family) against the JAX package.
+"""The port's LM substrate against the JAX package: the dense family
+here, and the helpers the other families' files use
+(tests/test_torch_moe.py, test_torch_ssm.py, test_torch_xlstm.py,
+test_torch_encdec.py).
 
 The reference's parameters (``repro.models`` init, numpy leaves) are
 carried into the port by ``convert.lm_params_from_jax``, so both
@@ -10,8 +13,13 @@ reduced configurations are ``reduced()`` deepseek-7b (MHA) and
 qwen3-32b (GQA, qk-norm, RoPE θ 10^6).
 """
 
+import contextlib
 import dataclasses
 import functools
+import json
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,15 +30,18 @@ import torch
 from repro.configs import base as j_base
 from repro.models import attention as j_attn
 from repro.models import build as j_build
+from repro.models import frontend as j_frontend
 from repro.models import layers as j_L
 from repro_torch import configs, convert, models
-from repro_torch.models import attention, layers as L
+from repro_torch.core import prng
+from repro_torch.models import attention, frontend, layers as L
 
 torch.set_num_threads(1)
 
 TOL = 2e-2
 ARCHS = ["deepseek-7b", "qwen3-32b"]
 DENSE = ["deepseek-7b", "qwen3-32b", "internlm2-20b", "command-r-35b"]
+ALL = list(j_base.ASSIGNED_ARCHS)
 
 
 @functools.cache
@@ -49,13 +60,48 @@ def _tokens(cfg, shape, seed=1):
         0, cfg.vocab_size, size=shape).astype(np.int32)
 
 
+def frontend_inputs(jcfg, cfg, B, S):
+    """The stub frontend's inputs for a batch of B prompts of S tokens,
+    as both packages' serve draw them from key 1: ``prefix_embeds``
+    (vision prefix) or ``frames`` (encoder); {} for a text-only arch."""
+    if cfg.frontend == "vit_stub":
+        n = cfg.frontend_tokens
+        return ({"prefix_embeds": j_frontend.synth_embeds(
+                    jax.random.key(1), jcfg, B, n)},
+                {"prefix_embeds": frontend.synth_embeds(prng.key(1), cfg,
+                                                        B, n)})
+    if cfg.encoder_layers:
+        return ({"frames": j_frontend.synth_embeds(jax.random.key(1), jcfg,
+                                                   B, S)},
+                {"frames": frontend.synth_embeds(prng.key(1), cfg, B, S)})
+    return {}, {}
+
+
+@contextlib.contextmanager
+def float32_products(*modules):
+    """Run the ``layers`` modules' products in float32 (their ``dtype``
+    defaults), the reference's and the port's alike: the bf16 rounding
+    noise leaves, the model's structure stays.  Trace jitted functions
+    inside."""
+    fns = [(getattr(m, n), jnp.float32 if m is j_L else torch.float32)
+           for m in modules for n in ("linear", "mlp", "embed", "unembed")]
+    saved = [f.__defaults__ for f, _ in fns]
+    for f, dtype in fns:
+        f.__defaults__ = (dtype,)
+    try:
+        yield
+    finally:
+        for (f, _), d in zip(fns, saved):
+            f.__defaults__ = d
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got.float().numpy()),
                                np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_configs_match_reference(arch):
     ref, port = j_base.get_config(arch), configs.get_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -66,15 +112,21 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_raise_with_their_queue_item():
-    assert set(configs.all_configs()) == set(DENSE)
-    with pytest.raises(NotImplementedError, match="queue 1, item 15"):
-        configs.get_config("jamba-v0.1-52b")
+    """Every assigned arch is registered and builds (the families of
+    ROADMAP queue 1, item 15, are ported); an unknown arch is a
+    KeyError, and a block kind the reference lacks raises."""
+    assert set(configs.all_configs()) == set(ALL) == set(
+        configs.ASSIGNED_ARCHS)
+    for arch in ALL:
+        models.build(configs.reduced(configs.get_config(arch)))
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    cfg = dataclasses.replace(configs.reduced(configs.get_config(
-        "deepseek-7b")), block_pattern=(("attn", "moe"),))
-    with pytest.raises(NotImplementedError, match="queue 1, item 15"):
-        models.build(cfg)
+    base = configs.reduced(configs.get_config("deepseek-7b"))
+    for pattern in ((("attn", "moe"),), (("mamba", "none"),)):
+        models.build(dataclasses.replace(base, block_pattern=pattern))
+    for pattern in ((("rwkv", "mlp"),), (("attn", "glu"),)):
+        with pytest.raises(ValueError, match="not a block"):
+            models.build(dataclasses.replace(base, block_pattern=pattern))
 
 
 def test_init_matches_reference_layout_and_scale():
@@ -92,7 +144,8 @@ def test_init_matches_reference_layout_and_scale():
 
 
 @pytest.mark.parametrize("name", ["linear", "rms_norm", "rope", "mlp",
-                                  "embed", "unembed"])
+                                  "embed", "unembed", "layer_norm",
+                                  "rms_norm_scaleless"])
 def test_layers_match_jax(name):
     _, cfg, jparams, params = _model("deepseek-7b")
     rng = np.random.default_rng(7)
@@ -107,6 +160,19 @@ def test_layers_match_jax(name):
         scale = rng.standard_normal(cfg.d_model).astype(np.float32)
         _close(L.rms_norm({"scale": torch.from_numpy(scale)}, tx),
                j_L.rms_norm({"scale": jnp.asarray(scale)}, jx), 1e-5)
+    elif name == "layer_norm":
+        p = {"scale": rng.standard_normal(cfg.d_model).astype(np.float32),
+             "bias": rng.standard_normal(cfg.d_model).astype(np.float32)}
+        init = L.layernorm_init(cfg.d_model, "cpu")
+        assert {k: v.tolist() for k, v in init.items()} == {
+            k: np.asarray(v).tolist()
+            for k, v in j_L.layernorm_init(cfg.d_model).items()}
+        _close(L.layer_norm({k: torch.from_numpy(v) for k, v in p.items()},
+                            tx + 3.0),
+               j_L.layer_norm({k: jnp.asarray(v) for k, v in p.items()},
+                              jx + 3.0), 1e-5)
+    elif name == "rms_norm_scaleless":
+        _close(L.rms_norm_scaleless(tx), j_L.rms_norm_scaleless(jx), 1e-5)
     elif name == "rope":
         xr = x.reshape(2, 5, cfg.num_heads, cfg.hd)
         pos = np.array([[0, 1, 2, 3, 4], [7, 9, 11, 500, 4095]], np.int32)
@@ -174,16 +240,19 @@ def test_decode_attention_matches_jax(arch):
 
 
 def _serve(arch, n_decode, P=16, B=2, seed=1):
-    """Prefill P prompt tokens and decode n_decode teacher-forced tokens
-    through both models; returns (port logits, reference logits, the
-    token grid [B, P + n_decode]), logits stacked [n_decode + 1, B, V]."""
+    """Prefill P prompt tokens (after the stub frontend's prefix or
+    frames, where the arch has one) and decode n_decode teacher-forced
+    tokens through both models; returns (port logits, reference logits,
+    the token grid [B, P + n_decode]), logits stacked
+    [n_decode + 1, B, V]."""
     jcfg, cfg, jparams, params = _model(arch)
     toks = _tokens(cfg, (B, P + n_decode), seed)
     jm, tm = j_build(jcfg, use_flash=True), models.build(cfg, use_flash=True)
+    jextra, extra = frontend_inputs(jcfg, cfg, B, P)
     jl, jc = jax.jit(jm.make_prefill_step())(
-        jparams, {"tokens": jnp.asarray(toks[:, :P])})
-    tl, tc = tm.make_prefill_step()(params,
-                                    {"tokens": torch.from_numpy(toks[:, :P])})
+        jparams, {"tokens": jnp.asarray(toks[:, :P]), **jextra})
+    tl, tc = tm.make_prefill_step()(
+        params, {"tokens": torch.from_numpy(toks[:, :P]), **extra})
     jdec, tdec = jax.jit(jm.make_decode_step()), tm.make_decode_step()
     got, want = [tl], [np.asarray(jl)]
     for t in range(P, P + n_decode):
@@ -275,3 +344,155 @@ def test_init_cache_matches_reference_layout():
                                                          np.float32))
             assert c["k"].dtype == torch.bfloat16
             assert c["len"].dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# helpers of the other families' files
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_serve_cache_matches(arch, shape):
+    """``Model.init_serve_cache(shape)`` of the port against the
+    reference's: the same leaves per layer, in shape and type (the
+    reference stacks each pattern position's layers on a leading axis,
+    the encoder-decoder's layers on one), and the same values where the
+    port allocates (``device`` "meta" for the large decode shapes, whose
+    reference layout comes from ``jax.eval_shape``)."""
+    jcfg, cfg, _, _ = _model(arch)
+    jm, tm = j_build(jcfg), models.build(cfg)
+    assert tm.decode_window(shape) == jm.decode_window(shape)
+    small = shape.seq_len * shape.global_batch <= 1 << 12
+    want = (jm.init_serve_cache(shape) if small
+            else jax.eval_shape(lambda: jm.init_serve_cache(shape)))
+    got = tm.init_serve_cache(shape, device="cpu" if small else "meta")
+    if cfg.encoder_layers:
+        pairs = [(want[part][n], [c[n] for c in got[part]])
+                 for part in (0, 1) for n in want[part]]
+        assert [set(c) for c in got[1]] == [set(want[1])] * cfg.num_layers
+    else:
+        P = cfg.pattern_len
+        assert len(got) == cfg.num_layers
+        assert [set(c) for c in got] == [set(want[i % P])
+                                         for i in range(cfg.num_layers)]
+        pairs = [(leaf, [got[i][n] for i in range(pos, cfg.num_layers, P)])
+                 for pos in range(P) for n, leaf in want[pos].items()]
+    for leaf, layers in pairs:
+        assert leaf.shape == (len(layers),) + tuple(layers[0].shape)
+        assert {str(t.dtype).split(".")[-1] for t in layers} == {
+            str(leaf.dtype)}
+        if small:
+            np.testing.assert_array_equal(
+                np.stack([t.float().numpy() for t in layers]),
+                np.asarray(leaf, np.float32))
+
+
+def cli_lm(arch, *flags):
+    """``python -m repro_torch.launch.serve --workload lm --device cpu
+    --arch <arch>``: its one JSON line."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+         "lm", "--device", "cpu", "--arch", arch, "--batch", "2",
+         "--prompt-len", "16", "--gen", "3", *flags], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["arch"] == arch + "-smoke" and out["device"] == "cpu"
+    assert out["kernel_launches"] == {"flash_attention": 0}
+    assert out["tokens_finite"] and len(out["sample"]) == 4
+    return out
+
+
+def loss_both(arch, B=2, St=12, seed=4):
+    """``Model.loss_fn`` of both packages on one weighted batch:
+    ((loss, aux) of the port, of the reference)."""
+    jcfg, cfg, jparams, params = _model(arch)
+    rng = np.random.default_rng(seed)
+    toks = _tokens(cfg, (B, St), seed)
+    labels = _tokens(cfg, (B, St), seed + 1)
+    mask = (rng.random((B, St)) < 0.8).astype(np.float32)
+    w = rng.random(B).astype(np.float32)
+    alive = np.array([1.0] * (B - 1) + [0.0], np.float32)
+    jextra, extra = frontend_inputs(jcfg, cfg, B, St)
+    jb = {"tokens": toks, "labels": labels, "loss_mask": mask,
+          "weights": w, "alive": alive}
+    jloss, jm = jax.jit(j_build(jcfg).loss_fn)(
+        jparams, {**{k: jnp.asarray(v) for k, v in jb.items()}, **jextra})
+    loss, m = models.build(cfg).loss_fn(
+        params, {**{k: torch.from_numpy(v) for k, v in jb.items()}, **extra})
+    return ((float(loss), float(m["aux_loss"])),
+            (float(jloss), float(jm["aux_loss"])))
+
+
+def layerwise(arch, S=40, B=2, seed=1):
+    """Each layer of reduced(arch) on the reference's own activations:
+    the reference's stack runs layer by layer (its ``_apply_block``,
+    jitted) and every port layer gets the reference layer's input, so
+    the bf16 rounding of one layer does not compound through the next.
+    Holds each layer's output, aux and cache at 2e-2, and each MoE
+    router's ids on the reference's FFN input to the reference's.
+    Returns the number of layers checked."""
+    from repro.models import moe as j_moe
+    from repro.models import transformer as j_tr
+    from repro_torch.models import moe, transformer
+
+    jcfg, cfg, jparams, params = _model(arch)
+    toks = _tokens(cfg, (B, S), seed)
+    h = j_L.embed(jparams["embed"], jnp.asarray(toks))
+    jpos = jnp.arange(S, dtype=jnp.int32)[None]
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    P = cfg.pattern_len
+    for i, (mixer, ffn) in enumerate(transformer.layer_kinds(cfg)):
+        jp = jax.tree_util.tree_map(lambda a: a[i // P],
+                                    jparams["blocks"][i % P])
+
+        def block(p, x, ffn=ffn, mixer=mixer):
+            return j_tr._apply_block(p, jcfg, mixer, ffn, x, jpos, window=0,
+                                     use_flash=False, collect_cache=True)
+
+        jh, jaux, jc = jax.jit(block)(jp, h)
+        got, aux, c = transformer._apply_block(
+            params["blocks"][i], cfg, mixer, ffn,
+            torch.from_numpy(np.asarray(h, np.float32)).bfloat16(), pos,
+            window=0, use_flash=False)
+        _close(got, jh)
+        _close(aux, jaux)
+        for n in jc:
+            _close(c[n], jc[n])
+        if ffn == "moe":
+            mid, _, _ = jax.jit(functools.partial(block, ffn="none"))(jp, h)
+            x = j_L.rms_norm(jp["norm2"], mid, jcfg.norm_eps)
+            _, jidx, _ = jax.jit(lambda x: j_moe._route(jp["ffn"], jcfg, x))(
+                x.reshape(-1, cfg.d_model))
+            _, idx, _ = moe._route(
+                params["blocks"][i]["ffn"], cfg,
+                torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+                .reshape(-1, cfg.d_model))
+            np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        h = jh
+    return cfg.num_layers
+
+
+def depth_divergence(arch, B=2, S=20, seed=1):
+    """Reduced(arch)'s forward logits: (max |port − reference|, max
+    |reference − reference with float32 products|) — the second is the
+    reference's own bf16 rounding noise at this depth."""
+    jcfg, cfg, jparams, params = _model(arch)
+    toks = _tokens(cfg, (B, S), seed)
+
+    def ref():
+        return np.asarray(jax.jit(lambda p, t: j_build(jcfg).logits(
+            p, {"tokens": t})[0])(jparams, jnp.asarray(toks)))
+
+    want = ref()
+    with float32_products(j_L):
+        want_f32 = ref()
+    got = models.build(cfg).logits(params,
+                                   {"tokens": torch.from_numpy(toks)})[0]
+    return (float(np.abs(got.numpy() - want).max()),
+            float(np.abs(want - want_f32).max()))
