@@ -29,6 +29,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import prng
 from repro_torch.models import attention, layers as L, moe, ssm, xlstm
+from repro_torch.obs import trace as obs_trace
 
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
@@ -104,15 +105,26 @@ def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash):
         out, cache = xlstm.mlstm_forward(p["mixer"], cfg, hn)
     else:
         out, cache = xlstm.slstm_forward(p["mixer"], cfg, hn)
-    h = h + out
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if ffn == "mlp":
-        h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
-    elif ffn == "moe":
-        y, aux = moe.apply(p["ffn"], cfg,
-                           L.rms_norm(p["norm2"], h, cfg.norm_eps))
-        h = h + y
+    h, aux = _ffn(p, cfg, ffn, h + out)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux, cache
+
+
+def _ffn(p, cfg, ffn, h):
+    """The layer's FFN on its residual stream: (h, the MoE's aux, None
+    for another FFN).  The MoE (not its norm) runs inside a ``moe_ffn``
+    span, which a profiler capture under an active recorder shows with
+    its kernels."""
+    if ffn == "mlp":
+        return h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h,
+                                              cfg.norm_eps)), None
+    if ffn == "moe":
+        x = L.rms_norm(p["norm2"], h, cfg.norm_eps)
+        with obs_trace.annotate("moe_ffn"):
+            y, aux = moe.apply(p["ffn"], cfg, x)
+        return h + y, aux
+    return h, None
 
 
 def _embed(params, tokens, prefix_embeds):
@@ -207,24 +219,23 @@ def decode_step(params, cfg, caches, tokens, *, window=0):
     h = L.embed(params["embed"], tokens)
     for i, (p, (mixer, ffn)) in enumerate(zip(params["blocks"],
                                               layer_kinds(cfg))):
-        hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
-        if mixer == "attn":
-            out, nc = attention.decode_attention(p["mixer"], cfg, hn,
-                                                 caches[i], window=window)
-        elif mixer == "mamba":
-            out, nc = ssm.decode_step(p["mixer"], cfg, hn, caches[i])
-        elif mixer == "mlstm":
-            out, nc = xlstm.mlstm_decode(p["mixer"], cfg, hn, caches[i])
-        else:
-            st = tuple(caches[i][n] for n in SLSTM_STATE)
-            out, st = xlstm.slstm_decode(p["mixer"], cfg, hn, st)
-            nc = dict(zip(SLSTM_STATE, st))
-        caches[i] = nc
-        h = h + out
-        if ffn == "mlp":
-            h = h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h, cfg.norm_eps))
-        elif ffn == "moe":
-            y, _ = moe.apply(p["ffn"], cfg,
-                             L.rms_norm(p["norm2"], h, cfg.norm_eps))
-            h = h + y
+        h, caches[i] = _decode_block(p, cfg, mixer, ffn, h, caches[i],
+                                     window=window)
     return _logits(params, cfg, h)[:, 0], caches
+
+
+def _decode_block(p, cfg, mixer, ffn, h, cache, *, window):
+    """One layer on one new token: (h, the layer's new cache)."""
+    hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
+    if mixer == "attn":
+        out, cache = attention.decode_attention(p["mixer"], cfg, hn, cache,
+                                                window=window)
+    elif mixer == "mamba":
+        out, cache = ssm.decode_step(p["mixer"], cfg, hn, cache)
+    elif mixer == "mlstm":
+        out, cache = xlstm.mlstm_decode(p["mixer"], cfg, hn, cache)
+    else:
+        st = tuple(cache[n] for n in SLSTM_STATE)
+        out, st = xlstm.slstm_decode(p["mixer"], cfg, hn, st)
+        cache = dict(zip(SLSTM_STATE, st))
+    return _ffn(p, cfg, ffn, h + out)[0], cache

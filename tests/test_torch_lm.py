@@ -77,28 +77,58 @@ def frontend_inputs(jcfg, cfg, B, S):
     return {}, {}
 
 
+class _Float32Numpy:
+    """``jax.numpy`` whose ``bfloat16`` is float32: the reference's MoE
+    experts name bf16 outright (``moe.py:86-134``)."""
+
+    bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
 @contextlib.contextmanager
 def float32_products(*modules):
-    """Run the ``layers`` modules' products in float32 (their ``dtype``
-    defaults), the reference's and the port's alike: the bf16 rounding
-    noise leaves, the model's structure stays.  Trace jitted functions
-    inside."""
+    """Run the modules' products in float32, the reference's and the
+    port's alike: the ``layers`` modules' ``dtype`` defaults, and the
+    MoE experts' bf16 (the reference's ``jnp.bfloat16``, the port's
+    ``moe.BF16``).  The bf16 rounding noise leaves, the model's
+    structure stays.  Trace jitted functions inside."""
+    from repro.models import moe as j_moe
+    from repro_torch.models import moe
+
     fns = [(getattr(m, n), jnp.float32 if m is j_L else torch.float32)
-           for m in modules for n in ("linear", "mlp", "embed", "unembed")]
+           for m in modules if m in (j_L, L)
+           for n in ("linear", "mlp", "embed", "unembed")]
     saved = [f.__defaults__ for f, _ in fns]
     for f, dtype in fns:
         f.__defaults__ = (dtype,)
+    if j_moe in modules:
+        j_moe.jnp = _Float32Numpy()
+    if moe in modules:
+        moe.BF16 = torch.float32
     try:
         yield
     finally:
         for (f, _), d in zip(fns, saved):
             f.__defaults__ = d
+        j_moe.jnp, moe.BF16 = jnp, torch.bfloat16
 
 
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got.float().numpy()),
                                np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
+
+
+def _close_state(got, want, tol=TOL):
+    """``_close`` with the absolute part scaled to the reference's
+    largest magnitude: a recurrent state far below 1 (a Mamba ``h`` of
+    about 2e-4 at these widths, an mLSTM ``C`` of about 1e-2) is then
+    held at 2e-2 of its own scale, not within 2e-2 of zero."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got.float().numpy()), want,
+                               rtol=tol, atol=tol * np.abs(want).max())
 
 
 @pytest.mark.parametrize("arch", ALL)
@@ -434,8 +464,9 @@ def layerwise(arch, S=40, B=2, seed=1):
     the reference's stack runs layer by layer (its ``_apply_block``,
     jitted) and every port layer gets the reference layer's input, so
     the bf16 rounding of one layer does not compound through the next.
-    Holds each layer's output, aux and cache at 2e-2, and each MoE
-    router's ids on the reference's FFN input to the reference's.
+    Holds each layer's output and aux at 2e-2, its cache at 2e-2 of its
+    scale (``_close_state``), and each MoE router's ids on the
+    reference's FFN input to the reference's.
     Returns the number of layers checked."""
     from repro.models import moe as j_moe
     from repro.models import transformer as j_tr
@@ -463,7 +494,7 @@ def layerwise(arch, S=40, B=2, seed=1):
         _close(got, jh)
         _close(aux, jaux)
         for n in jc:
-            _close(c[n], jc[n])
+            _close_state(c[n], jc[n])
         if ffn == "moe":
             mid, _, _ = jax.jit(functools.partial(block, ffn="none"))(jp, h)
             x = j_L.rms_norm(jp["norm2"], mid, jcfg.norm_eps)
@@ -496,3 +527,162 @@ def depth_divergence(arch, B=2, S=20, seed=1):
                                    {"tokens": torch.from_numpy(toks)})[0]
     return (float(np.abs(got.numpy() - want).max()),
             float(np.abs(want - want_f32).max()))
+
+
+def _reference_decode_by_layer(arch, P, n, B, seed):
+    """The reference's serve prefill of P tokens (jitted, flash on) and
+    n teacher-forced decode steps run layer by layer: its
+    ``decode_step`` body for one layer, jitted.  Yields, for every step
+    and layer, ("layer", i, (mixer, ffn), the layer's params, its input,
+    its cache, its output, its new cache, its FFN input), and after each
+    step ("step", the last layer's output, the logits of the
+    reference's whole jitted ``decode_step`` at that step)."""
+    from repro.models import moe as j_moe
+    from repro.models import ssm as j_ssm
+    from repro.models import xlstm as j_xlstm
+    from repro_torch.models import transformer
+
+    jcfg, cfg, jparams, _ = _model(arch)
+    eps, Pl = cfg.norm_eps, cfg.pattern_len
+    toks = _tokens(cfg, (B, P + n), seed)
+    jm = j_build(jcfg, use_flash=True)
+    _, jcaches = jax.jit(jm.make_prefill_step())(
+        jparams, {"tokens": jnp.asarray(toks[:, :P])})
+    caches = [jax.tree_util.tree_map(lambda a, s=i // Pl: a[s],
+                                     jcaches[i % Pl])
+              for i in range(cfg.num_layers)]
+
+    def layer(p, hh, cache, mixer, ffn):
+        hn = j_L.rms_norm(p["norm1"], hh, eps)
+        if mixer == "attn":
+            out, nc = j_attn.decode_attention(p["mixer"], jcfg, hn, cache,
+                                              window=0)
+        elif mixer == "mamba":
+            out, nc = j_ssm.decode_step(p["mixer"], jcfg, hn, cache)
+        elif mixer == "mlstm":
+            out, nc = j_xlstm.mlstm_decode(p["mixer"], jcfg, hn, cache)
+        else:
+            st = tuple(cache[k] for k in ("h", "c", "n", "m"))
+            out, st = j_xlstm.slstm_decode(p["mixer"], jcfg, hn, st)
+            nc = dict(zip(("h", "c", "n", "m"), st))
+        hh = hh + out
+        x = j_L.rms_norm(p["norm2"], hh, eps) if ffn != "none" else hh
+        if ffn == "mlp":
+            hh = hh + j_L.mlp(p["ffn"], x)
+        elif ffn == "moe":
+            hh = hh + j_moe.apply(p["ffn"], jcfg, x)[0]
+        return hh, nc, x
+
+    kinds = transformer.layer_kinds(cfg)
+    steps = {k: jax.jit(functools.partial(layer, mixer=k[0], ffn=k[1]))
+             for k in set(kinds)}
+    jdec = jax.jit(jm.make_decode_step())
+    for t in range(P, P + n):
+        tok = jnp.asarray(toks[:, t:t + 1])
+        want, jcaches = jdec(jparams, jcaches, tok)
+        h = j_L.embed(jparams["embed"], tok)
+        for i, kind in enumerate(kinds):
+            jp = jax.tree_util.tree_map(lambda a: a[i // Pl],
+                                        jparams["blocks"][i % Pl])
+            jh, jc, jx = steps[kind](jp, h, caches[i])
+            yield "layer", i, kind, jp, h, caches[i], jh, jc, jx
+            h, caches[i] = jh, jc
+        yield "step", h, want
+
+
+def _reference_head(jcfg, jparams, h):
+    """The reference's ``decode_step`` tail: final norm and head."""
+    h = j_L.rms_norm(jparams["final_norm"], h, jcfg.norm_eps)
+    if jcfg.tie_embeddings:
+        return j_L.unembed(jparams["embed"], h)[:, 0]
+    return j_L.linear(jparams["lm_head"], h).astype(jnp.float32)[:, 0]
+
+
+def reference_decode_self_divergence(arch, P=40, n=4, B=2, seed=1):
+    """max |logits of the reference's decode run one jitted layer at a
+    time − logits of its whole jitted ``decode_step``| over n steps, in
+    bf16: the reference's own rounding noise between two jit
+    boundaries."""
+    jcfg, _, jparams, _ = _model(arch)
+    head = jax.jit(functools.partial(_reference_head, jcfg))
+    return max(float(np.abs(np.asarray(head(jparams, item[1]))
+                            - np.asarray(item[2])).max())
+               for item in _reference_decode_by_layer(arch, P, n, B, seed)
+               if item[0] == "step")
+
+
+def layerwise_decode(arch, P=40, n=4, B=2, seed=1):
+    """Each layer's one-token decode of reduced(arch) on the reference's
+    own inputs and caches (``_reference_decode_by_layer``): at every
+    layer and step the port's ``transformer._decode_block`` gets that
+    layer's input and the reference's cache.  Holds each layer's output
+    at 2e-2, its new cache at 2e-2 of its scale (``_close_state``; an
+    attention cache's ``len`` exactly, every leaf's dtype equal), each
+    MoE router's ids on the reference's FFN input equal, and the port's
+    head on the reference's last activation at 2e-2.  With float32
+    products (no bf16 noise between the two jit boundaries) the chained
+    reference layers give its whole ``decode_step``'s logits, which
+    pins the layer body on the reference's.  Returns the (layer, step)
+    pairs checked."""
+    from repro.models import moe as j_moe
+    from repro_torch.models import moe, transformer
+
+    jcfg, cfg, jparams, params = _model(arch)
+    D = cfg.d_model
+    port = lambda a: (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                      if a.dtype == jnp.bfloat16
+                      else torch.from_numpy(np.array(a)))
+    route = jax.jit(lambda p, x: j_moe._route(p, jcfg, x)[1])
+    head = jax.jit(functools.partial(_reference_head, jcfg))
+    checked = 0
+    for item in _reference_decode_by_layer(arch, P, n, B, seed):
+        if item[0] == "step":
+            h = item[1]
+            _close(transformer._logits(params, cfg, port(h))[:, 0],
+                   head(jparams, h))
+            continue
+        _, i, (mixer, ffn), jp, h, cache, jh, jc, jx = item
+        got, c = transformer._decode_block(
+            params["blocks"][i], cfg, mixer, ffn, port(h),
+            {k: port(v) for k, v in cache.items()}, window=0)
+        _close(got, jh)
+        assert set(c) == set(jc)
+        for k in jc:
+            assert c[k].dtype == port(jc[k]).dtype, (i, k)
+            if k == "len":
+                np.testing.assert_array_equal(c[k].numpy(), jc[k])
+            else:
+                _close_state(c[k], jc[k])
+        if ffn == "moe":
+            np.testing.assert_array_equal(
+                moe._route(params["blocks"][i]["ffn"], cfg,
+                           port(jx).reshape(-1, D))[1].numpy(),
+                np.asarray(route(jp["ffn"], jx.reshape(-1, D))))
+        checked += 1
+    with float32_products(j_L, j_moe):
+        for item in _reference_decode_by_layer(arch, P, n, B, seed):
+            if item[0] == "step":
+                _close(torch.from_numpy(np.array(jax.jit(functools.partial(
+                    _reference_head, jcfg))(jparams, item[1]))), item[2])
+    return checked
+
+
+def float32_logits(arch, mode):
+    """Reduced(arch) with float32 products on both sides, the MoE
+    experts' too: (port logits, reference logits) of ``forward`` on a
+    [2, 24] token grid ("forward"), or of a serve prefill of 20 tokens
+    and 4 teacher-forced decode steps, stacked [5, 2, Vp] ("serve")."""
+    from repro.models import moe as j_moe
+    from repro_torch.models import moe
+
+    jcfg, cfg, jparams, params = _model(arch)
+    with float32_products(j_L, L, j_moe, moe):
+        if mode == "serve":
+            got, want, _ = _serve(arch, 4, P=20)
+            return got, want
+        toks = _tokens(cfg, (2, 24))
+        want = jax.jit(lambda p, t: j_build(jcfg).logits(
+            p, {"tokens": t})[0])(jparams, jnp.asarray(toks))
+        got = models.build(cfg).logits(params,
+                                       {"tokens": torch.from_numpy(toks)})[0]
+    return got.numpy(), np.asarray(want)

@@ -248,3 +248,28 @@ def test_serve_cache_matches_reference(arch, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cli_lm_prints_its_json_line(arch):
     cli_lm(arch)
+
+
+def test_moe_ffn_span_frames_each_moe_layer():
+    """Under an active trace recorder a profiler capture of a prefill
+    and a decode step shows one ``moe_ffn`` region per MoE layer and
+    step (what ``chip_smoke.py`` reads the MoE's device share from);
+    with no recorder the span is the no-op and shows nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace as obs_trace
+
+    _, cfg, _, params = _model("granite-moe-3b-a800m")
+    model = models.build(cfg)
+    toks = torch.from_numpy(_tokens(cfg, (2, 8)))
+
+    def regions():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, caches = model.make_prefill_step()(params,
+                                                  {"tokens": toks[:, :7]})
+            model.make_decode_step()(params, caches, toks[:, 7:])
+        return sum(e.count for e in prof.key_averages() if e.key == "moe_ffn")
+
+    assert regions() == 0
+    with obs_trace.recording():
+        assert regions() == 2 * cfg.num_layers

@@ -9,10 +9,13 @@ bounds XLA ``log``s, and ``A_log`` is ``log(1..d_state)``, each an
 XLA:CPU transcendental that ``repro_torch.core.fp32`` spells out.
 
 The full reduced stack (8 layers: 7 Mamba, 1 attention, 4 MoE FFNs) is
-held layer by layer on the reference's own activations; end to end its
-logits differ from the reference's by more than 2e-2, as the
-reference's differ from its own float32-product evaluation — ROADMAP
-queue 3, "bf16 noise at depth".
+held layer by layer on the reference's own activations and caches, in
+the prefill and in four decode steps; with float32 products on both
+sides (the MoE experts' too) it matches end to end, forward and a
+prefill plus four decode steps.  In bf16, end to end, its logits differ
+from the reference's by more than 2e-2, as the reference's differ from
+its own float32-product evaluation — ROADMAP queue 3, "bf16 noise at
+depth".
 """
 
 import jax
@@ -26,8 +29,10 @@ from repro.models import ssm as j_ssm
 from repro_torch import models
 from repro_torch.core import fp32, prng
 from repro_torch.models import ssm
-from test_torch_lm import (TOL, _close, _model, assert_serve_cache_matches,
-                           cli_lm, depth_divergence, layerwise)
+from test_torch_lm import (TOL, _close, _close_state, _model,
+                           assert_serve_cache_matches, cli_lm,
+                           depth_divergence, float32_logits, layerwise,
+                           layerwise_decode)
 from test_torch_lm_init import _assert_params_equal, _bits, _ref_params
 
 torch.set_num_threads(1)
@@ -105,7 +110,7 @@ def test_mamba_forward_matches_reference(S):
     assert st["h"].dtype == torch.float32 and jst["h"].dtype == jnp.float32
     assert st["conv"].dtype == torch.bfloat16
     assert jst["conv"].dtype == jnp.bfloat16
-    _close(st["h"], jst["h"])
+    _close_state(st["h"], jst["h"])
     _close(st["conv"], jst["conv"])
 
 
@@ -125,7 +130,7 @@ def test_mamba_decode_matches_reference():
         jy, jst = step(jxt, jst)
         y, st = ssm.decode_step(p, cfg, txt, st)
         _close(y, jy)
-        _close(st["h"], jst["h"])
+        _close_state(st["h"], jst["h"])
         _close(st["conv"], jst["conv"])
         assert st["conv"].dtype == torch.bfloat16
 
@@ -139,11 +144,29 @@ def test_mamba_prefill_then_decode_equals_longer_prefill():
     _, st = ssm.forward(p, cfg, tx[:, :129])
     y_last, st = ssm.decode_step(p, cfg, tx[:, 129:], st)
     _close(y_last, y_all[:, 129:].float().numpy())
-    _close(st["h"], st_all["h"].numpy())
+    _close_state(st["h"], st_all["h"].numpy())
 
 
 def test_layers_match_reference_on_its_activations():
     assert layerwise(ARCH) == 8
+
+
+def test_layers_decode_on_reference_caches():
+    """Four decode steps, each of the 8 layers on the reference's input
+    and cache: the Mamba state handed over from the prefill, the bf16
+    conv ring, the attention cache's length, the MoE's drop-free
+    decode."""
+    assert layerwise_decode(ARCH) == 8 * 4
+
+
+@pytest.mark.parametrize("mode", ["forward", "serve"])
+def test_float32_products_match_reference(mode):
+    """With float32 products on both sides (layers and MoE experts) the
+    reduced stack matches end to end: forward logits, and a prefill
+    plus four decode steps."""
+    got, want = float32_logits(ARCH, mode)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def test_queue3_reproducer_bf16_noise_at_depth():
