@@ -85,6 +85,16 @@ UTMALDG), and drives the port's paths through
   answers decided (its mw_update launches counted); the finite class
   at m = 2^20, |H| = 512, equal to the CPU's;
 
+* the launch tooling — ``repro_torch.launch.dryrun`` of deepseek-7b
+  ``prefill_32k``/``decode_32k``, granite-moe-3b-a800m ``prefill_32k``
+  and the protocol on the 16×16 production mesh, and of the LM slice's
+  own prefill on one device, in subprocesses that see no card (started
+  first, read last: every term finite and above 0); deepseek-7b and
+  granite-moe-3b-a800m at full width and 2 layers on DTensors over
+  ``make_host_mesh()`` (granite's prefill and 2 decode steps) against
+  the plain model; the roofline line, the dry run's compute term of
+  the LM slice's prefill over its measured device time (under 1);
+
 each with every kernel's launch count set to 0 just before and read
 just after.  The LM slice's parameters are the reference's for seed 0
 (their init timed on its own), and the reduced models' seed-0
@@ -105,6 +115,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -112,6 +123,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -291,6 +303,30 @@ WIDTHS = ("d_model", "num_heads", "num_kv_heads", "hd", "d_ff",
           "expert_d_ff", "num_experts", "experts_per_token", "vocab_size",
           "block_pattern", "encoder_layers", "frontend_tokens",
           "ssm_state_dim", "ssm_conv_width", "ssm_expand")
+
+
+# the launch tooling's dry run (python -m repro_torch.launch.dryrun, in
+# subprocesses that see no card, so its fake world never meets the
+# NCCL world): these pairs on the 16×16 production mesh, the protocol,
+# and the LM slice's own prefill (deepseek-7b, B = 4, S = 2048) on a
+# one-device mesh for the roofline line
+DRYRUN_PAIRS = [("deepseek-7b", "prefill_32k"), ("deepseek-7b", "decode_32k"),
+                ("granite-moe-3b-a800m", "prefill_32k")]
+DRYRUN_ROOFLINE = """
+import json, sys
+from repro_torch.configs.base import MeshConfig, ShapeConfig
+from repro_torch.launch import dryrun
+r = dryrun.dry_run_one("deepseek-7b", ShapeConfig("lm_slice", 2048, 4,
+                       "prefill"), mesh_cfg=MeshConfig(data=1, model=1))
+json.dump(r, open(sys.argv[1], "w"))
+"""
+DRYRUN_TIMEOUT_S = 900
+HOST_MESH_TOL = 2e-2               # DTensor prefill vs plain, logits
+HOST_MESH_LAYERS = 2              # the host-mesh phase's depth cut
+HOST_MESH_DECODE = 2              # its granite decode steps
+# the LM slices' prefill time from their profiles: name → (device ms or
+# None where the profiler recorded no kernel, profiled wall ms)
+PREFILL_MS: dict = {}
 
 
 T0 = time.perf_counter()
@@ -1944,8 +1980,12 @@ def profile_lm(models, obs_trace, cfg, params, batch, name) -> None:
                 log(f"profile {name} {step}: wall_ms {wall_ms:.2f} "
                     "(profiled); device time not measured (no kernels "
                     "recorded)")
+                if step == "prefill":
+                    PREFILL_MS[name] = (None, wall_ms)
                 continue
             dev_ms = sum(e.self_device_time_total for e in rows) / steps / 1e3
+            if step == "prefill":
+                PREFILL_MS[name] = (dev_ms, wall_ms)
             flash_ms = sum(e.self_device_time_total for e in rows
                            if "flash_wgmma" in e.key) / steps / 1e3
             msg = (f"profile {name} {step}: wall_ms/step {wall_ms:.2f} "
@@ -2326,6 +2366,177 @@ def phase_lm_card_vs_cpu(models, configs, flash_ops, transformer, frontend,
                 f"{n} decode max_abs_err {err32:.4g} <= {LM_TOL}")
 
 
+def start_dry_run(out: str) -> list:
+    """The dry run's subprocesses, started at once (they take the host's
+    CPU while the card runs the other phases): one per pair of
+    ``DRYRUN_PAIRS``, the protocol, and the roofline prefill.  They see
+    no card (``CUDA_VISIBLE_DEVICES`` empty)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out]
+    cmds = [cli + ["--arch", a, "--shape", s] for a, s in DRYRUN_PAIRS]
+    cmds.append(cli + ["--protocol"])
+    cmds.append([sys.executable, "-c", DRYRUN_ROOFLINE,
+                 os.path.join(out, "roofline.json")])
+    procs = [(cmd, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    atexit.register(stop_dry_run, procs, out)
+    return procs
+
+
+def stop_dry_run(procs, out: str) -> None:
+    """At exit, whatever failed before: no dry-run process left running,
+    its output directory gone."""
+    for _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_dry_run(procs, out: str) -> dict:
+    """Every dry-run subprocess exits 0; every pair's roofline terms
+    (compute, memory, collective) are finite and above 0, and so are
+    the protocol's (memory and collective per round and per attempt,
+    its round's calls equal to the ledger's sites).  Prints the terms
+    as one JSON line and returns the roofline prefill's record."""
+    for cmd, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry run {cmd[3:]} passed "
+                                 f"{DRYRUN_TIMEOUT_S} s")
+        for line in text.splitlines()[-4:]:
+            log(f"  dry run: {line}")
+        check(proc.returncode == 0, f"dry run {cmd[3:]} exited "
+              f"{proc.returncode}")
+    terms = ("compute_s", "memory_s", "collective_s")
+    pairs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        with open(os.path.join(out, f"{arch}_{shape}_16x16.json")) as f:
+            r = json.load(f)
+        for t in terms:
+            check(math.isfinite(r[t]) and r[t] > 0,
+                  f"dry run {arch} {shape}: {t} = {r[t]}")
+        pairs[f"{arch}/{shape}"] = {k: r[k] for k in (
+            *terms, "dominant", "flops_per_dev", "bytes_per_dev",
+            "largest_collective_bytes", "run_s")}
+        pairs[f"{arch}/{shape}"]["count_by_op"] = r["collectives"][
+            "count_by_op"]
+    with open(os.path.join(out, "boosting-protocol_16x16.json")) as f:
+        prot = json.load(f)
+    for t in ("memory_s", "collective_s", "per_attempt_collective_s"):
+        check(math.isfinite(prot[t]) and prot[t] > 0,
+              f"protocol dry run: {t} = {prot[t]}")
+    check(prot["calls_per_round"] == prot["ledger_sites_per_round"],
+          f"protocol dry run: calls {prot['calls_per_round']} != ledger "
+          f"{prot['ledger_sites_per_round']}")
+    with open(os.path.join(out, "roofline.json")) as f:
+        roof = json.load(f)
+    check(math.isfinite(roof["compute_s"]) and roof["compute_s"] > 0,
+          f"roofline dry run: compute_s {roof['compute_s']}")
+    print(json.dumps({"dry_run": {
+        "mesh": [16, 16], "constants": "H100 SXM data sheet (700 W)",
+        "pairs": pairs, "protocol": {k: prot[k] for k in (
+            "players", "rounds", "calls_per_round", "memory_s",
+            "collective_s", "per_attempt_collective_s")}}}), flush=True)
+    return roof
+
+
+def phase_host_mesh(models, configs, prng, mesh_lib, sharding) -> dict:
+    """``make_host_mesh()``: a (1, 1) mesh on the card over a 1-rank
+    NCCL world, gone after the block.  deepseek-7b and
+    granite-moe-3b-a800m at full width, depth cut to HOST_MESH_LAYERS
+    (einsum attention, no kernel), on DTensors placed by
+    ``param_specs``, ``batch_partition`` and ``cache_partition``,
+    against the plain model on the same parameters and tokens: the
+    prefill's last-token logits and, for granite, HOST_MESH_DECODE
+    decode steps (the MoE's one-hot dispatch and the cache's slot-mask
+    write run on real values) within HOST_MESH_TOL.  On one device
+    every other DTensor op is its local op.  Prints one JSON line."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    mcfg = configs.MeshConfig(data=1, model=1)
+    B, S = 4, 256
+    shape = configs.ShapeConfig("host", S, B, "prefill")
+    dshape = configs.ShapeConfig("host", S, B, "decode")
+    out = {"mesh": [1, 1], "device": "cuda", "layers": HOST_MESH_LAYERS,
+           "batch": B, "prompt": S, "tol": HOST_MESH_TOL, "archs": {}}
+    for arch, steps in (("deepseek-7b", 0),
+                        ("granite-moe-3b-a800m", HOST_MESH_DECODE)):
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  num_layers=HOST_MESH_LAYERS)
+        model = models.build(cfg)
+        params = model.init(0, "cuda")
+        tokens = prng.randint(prng.key(1, "cuda"), (B, S), 0,
+                              cfg.vocab_size)
+        prefill, decode = model.make_prefill_step(), model.make_decode_step()
+        with torch.no_grad():
+            plain, pcache = prefill(params, {"tokens": tokens})
+        errs = {}
+        with mesh_lib.make_host_mesh() as mesh, torch.no_grad(), \
+                implicit_replication():
+            check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+                  f"host mesh {mesh}")
+            placed = sharding.distribute(
+                params, sharding.param_specs(params, cfg, mcfg), mesh)
+            parts = sharding.batch_partition(cfg, shape, mcfg)
+            logits, cache = prefill(placed, sharding.distribute(
+                {"tokens": tokens}, {"tokens": parts["tokens"]}, mesh))
+            errs["prefill"] = (logits.full_tensor().float()
+                               - plain.float()).abs().max().item()
+            check(bool(torch.isfinite(logits.full_tensor()).all()),
+                  f"host mesh {arch}: prefill logits not finite")
+            cache = sharding.distribute(cache, sharding.cache_partition(
+                cache, cfg, dshape, mcfg), mesh)
+            tok = plain.argmax(-1).to(torch.int32)[:, None]
+            for _ in range(steps):
+                plain, pcache = decode(params, pcache, tok)
+                logits, cache = decode(placed, cache, sharding.distribute(
+                    tok, sharding.P(mcfg.batch_axes, None), mesh))
+                errs["decode"] = max(errs.get("decode", 0.0), (
+                    logits.full_tensor().float()
+                    - plain.float()).abs().max().item())
+                tok = plain.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+        check(not dist.is_initialized(), "the host mesh left its world")
+        for k, err in errs.items():
+            check(err <= HOST_MESH_TOL, f"host mesh {arch} {k}: "
+                  f"max_abs_err {err} > {HOST_MESH_TOL}")
+        out["archs"][arch] = {"decode_steps": steps,
+                              **{f"{k}_max_abs_err": v
+                                 for k, v in errs.items()}}
+        del params, placed, pcache, cache
+        torch.cuda.empty_cache()
+    print(json.dumps({"host_mesh": out}), flush=True)
+    return out
+
+
+def phase_roofline(roof: dict, card: str) -> dict:
+    """The dry run's compute term for the LM slice's own prefill on one
+    device against the slice's measured time of that prefill (the
+    profiler's device time, else its profiled wall time): no card beats
+    its roofline, so the ratio stays under 1.  Prints one JSON line."""
+    dev_ms, wall_ms = PREFILL_MS["lm slice"]
+    ms, source = ((dev_ms, "device") if dev_ms is not None
+                  else (wall_ms, "wall (profiled)"))
+    ratio = roof["compute_s"] * 1e3 / ms
+    check(ratio < 1.0, f"roofline: the dry run's compute_s "
+          f"{roof['compute_s']} is not under the measured {ms} ms")
+    out = {"roofline": {"arch": "deepseek-7b", "batch": 4, "prompt": 2048,
+                        "dry_run_compute_s": roof["compute_s"],
+                        "flops": roof["flops_per_dev"],
+                        "measured_prefill_ms": ms, "measured": source,
+                        "ratio": ratio, "card": card}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__).parse_args()
     if not torch.cuda.is_available():
@@ -2349,7 +2560,7 @@ def main() -> int:
     from repro_torch.kernels.mw_update import ops as mw_ops
     from repro_torch.kernels.stump import kernel as stump_kernel
     from repro_torch.kernels.stump import ops as stump_ops
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh as mesh_lib, serve, sharding, train
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import roundtrace
     from repro_torch.obs import trace as obs_trace
@@ -2360,6 +2571,9 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
         return out
 
+    # 0. the dry run's subprocesses, on the host's CPU beside the rest
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dry_procs = start_dry_run(dry_dir)
     # 1. card
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2539,7 +2753,13 @@ def main() -> int:
                           lower_bound, types)
     finite_launches = phase("finite class", phase_finite, serve, finite,
                             weak)
-    # 13. results: each kernel's top-level launches are its own main
+    # 13. the launch tooling: the dry run's terms, DTensors on the host
+    # mesh against the plain prefill, the roofline line
+    roof = phase("dry run", phase_dry_run, dry_procs, dry_dir)
+    phase("host mesh", phase_host_mesh, models, configs, prng, mesh_lib,
+          sharding)
+    phase("roofline", phase_roofline, roof, card)
+    # 14. results: each kernel's top-level launches are its own main
     # path's (mw_update and histogram the tree path's, stump the
     # scenario path's, flash attention the LM path's), and every path's
     # launches sit in its own entry of ``paths``

@@ -1,11 +1,12 @@
 """Model architectures and input shapes — the port's copy of
 ``repro.configs.base``.
 
-``ModelConfig``, ``ShapeConfig``, ``INPUT_SHAPES``, the registry and
-``reduced`` are the reference's, field for field, so a config named in
-either package describes the same model; the port registers all ten
-assigned architectures.  ``MeshConfig`` (the TPU mesh) has no
-counterpart on one card.
+``ModelConfig``, ``ShapeConfig``, ``INPUT_SHAPES``, ``MeshConfig``, the
+registry and ``reduced`` are the reference's, field for field, so a
+config named in either package describes the same model; the port
+registers all ten assigned architectures.  ``MeshConfig`` is the
+production mesh the launch tooling's dry run places a model on
+(:mod:`repro_torch.launch.mesh`).
 """
 
 from __future__ import annotations
@@ -179,6 +180,31 @@ INPUT_SHAPES = {
 # Sliding window used when a full-attention arch runs long_500k in "swa"
 # mode (Mistral-style ring cache).
 DEFAULT_SWA_WINDOW = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pod: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pod
+
+    @property
+    def axis_names(self):
+        return (("pod", "data", "model") if self.pod > 1
+                else ("data", "model"))
+
+    @property
+    def shape(self):
+        return ((self.pod, self.data, self.model) if self.pod > 1
+                else (self.data, self.model))
+
+    @property
+    def batch_axes(self):
+        return (("pod", "data") if self.pod > 1 else ("data",))
 
 
 # ---------------------------------------------------------------------------

@@ -345,12 +345,13 @@ def boost_attempt_sharded(group, cfg: BoostConfig, cls, num_rounds: int,
     and every rank returns the replicated outputs with ``hits``
     gathered back to [m_total].  ``no_center``: player 0 runs the ERM
     and broadcasts it.  ``group`` is a
-    ``core.sharded_batched.PlayersGroup``.
+    ``core.sharded_batched.PlayersGroup``; a ``FoldInKeys`` group (the
+    launch tooling's recording wire) is the wire itself.
     """
     from repro_torch.core.sharded_batched import FoldInKeys
 
     def fn(x, y, alive, hits, key):
-        wire = FoldInKeys(group)
+        wire = group if isinstance(group, FoldInKeys) else FoldInKeys(group)
         dev = group.device
         p, r = group.size, group.rank
 

@@ -92,7 +92,8 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     midpoint between two float32 neighbours (float64 rounding cannot
     cross one); there TwoSum's error term, the part of the exact sum
     that ``s`` dropped, breaks the tie: ``s`` moves one float64 step
-    toward it, off the midpoint.
+    toward it, off the midpoint.  A ``meta`` tensor (no values) has no
+    tie to break.
     """
     p = a.double() * (b.double() if torch.is_tensor(b) else b)
     cd = c.double() if torch.is_tensor(c) else c
@@ -102,7 +103,7 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     nb = torch.nextafter(r, torch.where(s > rd, math.inf, -math.inf)
                          .to(r.dtype)).double()
     mid = s * 2.0 == rd + nb
-    if not bool(mid.any()):
+    if r.is_meta or not bool(mid.any()):
         return r
     bb = s - p
     err = (p - (s - bb)) + (cd - bb)

@@ -85,7 +85,12 @@ def wrap_key_data(words) -> torch.Tensor:
 
 def _hash_counters(keys: torch.Tensor, idx: torch.Tensor):
     """Both output words for the flat counters ``idx`` (int64 [n]),
-    under every key of ``keys`` [..., 2] → two [..., n] tensors."""
+    under every key of ``keys`` [..., 2] → two [..., n] tensors (empty
+    ones for keys on ``meta``: their words hold no value to hash)."""
+    if keys.is_meta:
+        words = torch.empty(keys.shape[:-1] + idx.shape, dtype=torch.int64,
+                            device=keys.device)
+        return words, words
     k1 = keys[..., 0:1]
     k2 = keys[..., 1:2]
     return threefry2x32(k1, k2, idx >> 32, idx & MASK)
@@ -153,9 +158,19 @@ def _uniform_from_bits(bits: torch.Tensor, minval: float,
     return torch.clamp(v, min=lo)
 
 
+def _no_draw(keys: torch.Tensor, shape) -> torch.Tensor:
+    """A draw's float32 result without its values, for keys on
+    ``meta``: what ``jax.eval_shape`` of a draw gives."""
+    return torch.empty(keys.shape[:-1] + tuple(int(s) for s in shape),
+                       dtype=torch.float32, device=keys.device)
+
+
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` (float32) under every key."""
+    """``jax.random.uniform`` (float32) under every key (keys on
+    ``meta`` draw nothing)."""
+    if keys.is_meta:
+        return _no_draw(keys, shape)
     return _uniform_from_bits(random_bits(keys, shape), minval, maxval)
 
 
@@ -178,7 +193,9 @@ def truncated_normal(keys: torch.Tensor, lower: float, upper: float,
     then ``(u·P(u))·√2`` (``P`` = :func:`fp32.erf_inv_poly`) clipped to
     the open interval, all in XLA:CPU's float32 order.  The counters
     are hashed ``chunk`` at a time; the bits do not depend on the
-    slicing."""
+    slicing.  Keys on ``meta`` draw nothing."""
+    if keys.is_meta:
+        return _no_draw(keys, shape)
     shape = tuple(int(s) for s in shape)
     bounds = torch.tensor([lower, upper], dtype=torch.float32)
     a, b = (float(v) for v in fp32.erf(bounds * _INV_SQRT2))

@@ -88,3 +88,20 @@ def make_batch(key: torch.Tensor, cfg, batch: int, seq: int) -> dict:
         "weights": torch.ones((batch,), dtype=torch.float32, device=dev),
         "alive": torch.ones((batch,), dtype=torch.float32, device=dev),
     }
+
+
+def batch_specs(cfg, shape, dtype_tokens=torch.int32) -> dict:
+    """A training batch's shapes and dtypes as ``meta`` tensors (the
+    reference's ShapeDtypeStructs for its dry run)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    return {
+        "tokens": spec((B, S), dtype_tokens),
+        "labels": spec((B, S), dtype_tokens),
+        "loss_mask": spec((B, S), torch.float32),
+        "weights": spec((B,), torch.float32),
+        "alive": spec((B,), torch.float32),
+    }

@@ -108,8 +108,8 @@ def build_cross_cache(params, cfg, enc_out: torch.Tensor) -> list:
     over the encoder output."""
     B, T = enc_out.shape[0], enc_out.shape[1]
     KV, hd = cfg.num_kv_heads, cfg.hd
-    return [{n: L.linear(lp["cross_attn"]["w" + n], enc_out)
-             .reshape(B, T, KV, hd) for n in "kv"}
+    return [{n: L.reshape(L.linear(lp["cross_attn"]["w" + n], enc_out),
+                          B, T, KV, hd) for n in "kv"}
             for lp in params["decoder"]]
 
 

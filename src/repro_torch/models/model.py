@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import (DEFAULT_SWA_WINDOW, ModelConfig,
                                       ShapeConfig)
@@ -33,9 +34,17 @@ from repro_torch.optim import adamw
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Per-token NLL with masking: logits float32 [B, S, V], labels
-    [B, S] → [B, S]."""
+    [B, S] → [B, S].  DTensor logits (the launch tooling's dry run,
+    vocab-parallel) take the gold logit as a one-hot masked sum, the
+    same value: DTensor's vocab-parallel gather cannot take the
+    select that follows it (torch 2.13)."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        hot = labels.long()[..., None] == torch.arange(
+            logits.shape[-1], device=labels.device)
+        gold = torch.where(hot, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - gold) * mask
 
 
@@ -46,8 +55,11 @@ class Model:
 
     def init(self, seed: int = 0, device=None) -> dict:
         """The reference's ``init(jax.random.key(seed))``, bit for bit,
-        on ``device`` (``cuda`` unless the caller asks for the CPU)."""
-        dev = resolve_device(device)
+        on ``device`` (``cuda`` unless the caller asks for the CPU).
+        On ``"meta"`` it is the reference's ``jax.eval_shape(init)``:
+        the same tree, shapes and dtypes, and no draw (a key on
+        ``meta`` draws empty tensors, :mod:`repro_torch.core.prng`)."""
+        dev = resolve_device(device, meta=True)
         key = prng.key(seed, dev)
         if self.cfg.encoder_layers:
             return encdec.init_params(key, self.cfg)
@@ -161,8 +173,7 @@ class Model:
         ``DEFAULT_SWA_WINDOW`` slots for ``long_500k``).  ``device``
         ``"meta"`` gives the layout without memory."""
         cfg = self.cfg
-        dev = (torch.device("meta") if str(device) == "meta"
-               else resolve_device(device))
+        dev = resolve_device(device, meta=True)
         window = self.decode_window(shape)
         capacity = min(shape.seq_len, window) if window else shape.seq_len
         B = shape.global_batch

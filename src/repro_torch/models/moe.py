@@ -23,13 +23,16 @@ reference (``torch.topk``'s tie order is no contract).  The dispatch
 tensors are written by index where the reference sums one-hot
 products: each (token, expert) pair is chosen at most once, so every
 entry is the same 0/1 (and the same gate), and no step waits on the
-host.
+host.  DTensor tokens (the launch tooling's dry run) take the
+reference's one-hot products: an indexed write into a fresh tensor has
+no DTensor rule, an elementwise product shards like its operands.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import prng
 from repro_torch.models import layers as L
@@ -106,26 +109,60 @@ def _experts(p, xe: torch.Tensor, spec_in: str, spec_out: str):
 
 def _einsum_moe(p, cfg, xg: torch.Tensor, exact: bool = False):
     """xg [G, Tg, D] grouped tokens → (y [G, Tg, D] bf16, mean aux)."""
-    G, Tg, D = xg.shape
+    Tg = xg.shape[1]
     Ep = _num_experts(cfg)
     C = capacity(cfg, Tg, exact)
     gates, idx, aux = _route(p, cfg, xg)
-    pos, keep = einsum_slots(idx, Ep, C)
-    # every choice writes its own (token, expert) cell: 1 and its gate
-    # where kept, 0 where dropped (at slot C − 1 of a cell no kept
-    # choice of the token shares)
-    g = torch.arange(G, device=xg.device)[:, None, None].expand_as(idx)
-    t = torch.arange(Tg, device=xg.device)[None, :, None].expand_as(idx)
-    c = pos.clamp(max=C - 1)
-    dispatch = torch.zeros((G, Tg, Ep, C), dtype=BF16, device=xg.device)
-    combine = torch.zeros((G, Tg, Ep, C), dtype=torch.float32,
-                          device=xg.device)
-    dispatch[g, t, idx, c] = keep.to(BF16)
-    combine[g, t, idx, c] = gates * keep
+    build = _one_hot_dispatch if isinstance(xg, DTensor) else _indexed_dispatch
+    dispatch, combine = build(idx, gates, Ep, C)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg.to(BF16))
     ye = _experts(p, xe, "gecd,edf->gecf", "gecf,efd->gecd")
     y = torch.einsum("gtec,gecd->gtd", combine.to(BF16), ye)
     return y, aux.mean()
+
+
+def _indexed_dispatch(idx, gates, Ep: int, C: int):
+    """The dispatch and combine tensors [G, Tg, Ep, C] for idx/gates
+    [G, Tg, K], written by index: every choice writes its own (token,
+    expert) cell, 1 and its gate where kept, 0 where dropped (at slot
+    C − 1 of a cell no kept choice of the token shares)."""
+    G, Tg, _ = idx.shape
+    pos, keep = einsum_slots(idx, Ep, C)
+    c = pos.clamp(max=C - 1)
+    g = torch.arange(G, device=idx.device)[:, None, None].expand_as(idx)
+    t = torch.arange(Tg, device=idx.device)[None, :, None].expand_as(idx)
+    dispatch = torch.zeros((G, Tg, Ep, C), dtype=BF16, device=idx.device)
+    combine = torch.zeros((G, Tg, Ep, C), dtype=torch.float32,
+                          device=idx.device)
+    dispatch[g, t, idx, c] = keep.to(BF16)
+    combine[g, t, idx, c] = gates * keep
+    return dispatch, combine
+
+
+def _one_hot_dispatch(idx, gates, Ep: int, C: int):
+    """The dispatch and combine tensors [G, Tg, Ep, C] as the reference
+    builds them, for idx/gates [G, Tg, K]: choice k's one-hot expert
+    rows, their positions a cumulative count after the (k−1)-th
+    choices' (``offset``), and a one-hot slot where kept — only
+    elementwise ops and a cumsum, no gather and no indexed write."""
+    experts = torch.arange(Ep, device=idx.device)
+    slots = torch.arange(C, device=idx.device)
+    dispatch = combine = offset = None
+    for kk in range(idx.shape[-1]):
+        oh = (idx[..., kk, None] == experts).to(torch.int32)  # [G, Tg, Ep]
+        pos = torch.cumsum(oh, dim=1) - 1
+        if offset is not None:
+            pos = pos + offset[:, None, :]
+        count = oh.sum(dim=1)
+        offset = count if offset is None else offset + count
+        keep = (pos < C) & (oh > 0)
+        sel = ((pos.clamp(0, C - 1)[..., None] == slots)
+               & keep[..., None])                         # [G, Tg, Ep, C]
+        d = sel.to(BF16)
+        w = sel.float() * gates[..., kk, None, None]
+        dispatch = d if dispatch is None else dispatch + d
+        combine = w if combine is None else combine + w
+    return dispatch, combine
 
 
 def sort_slots(idx: torch.Tensor, Ep: int, C: int):
@@ -180,5 +217,5 @@ def apply(p, cfg, x: torch.Tensor, exact=None):
     g = max(1, T // GROUP_SIZE) if T >= GROUP_SIZE else 1
     while T % g:
         g -= 1
-    y, aux = _einsum_moe(p, cfg, x.reshape(g, T // g, D), exact=exact)
-    return y.reshape(B, S, D).to(x.dtype), aux
+    y, aux = _einsum_moe(p, cfg, L.reshape(x, g, T // g, D), exact=exact)
+    return L.reshape(y, B, S, D).to(x.dtype), aux

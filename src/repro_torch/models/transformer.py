@@ -91,13 +91,16 @@ def init_params(key: torch.Tensor, cfg) -> dict:
     return params
 
 
-def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash):
-    """One layer on the full sequence: (h, aux, the layer's cache)."""
+def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash,
+                 collect_cache=False):
+    """One layer on the full sequence: (h, aux, the layer's cache).
+    ``collect_cache`` (the prefill's) applies attention's head-layout
+    hint, as the reference's serving path does."""
     hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
     if mixer == "attn":
         out, k, v = attention.full_attention(
             p["mixer"], cfg, hn, positions, causal=True, window=window,
-            use_flash=use_flash)
+            use_flash=use_flash, constrain_layout=collect_cache)
         cache = {"k": k, "v": v}
     elif mixer == "mamba":
         out, cache = ssm.forward(p["mixer"], cfg, hn)
@@ -202,7 +205,7 @@ def prefill(params, cfg, tokens, prefix_embeds=None, use_flash=False,
     for p, (mixer, ffn) in zip(params["blocks"], layer_kinds(cfg)):
         h, a, c = _apply_block(p, cfg, mixer, ffn, h, positions,
                                window=window or cfg.sliding_window,
-                               use_flash=use_flash)
+                               use_flash=use_flash, collect_cache=True)
         aux = aux + a
         if mixer == "attn":
             c["len"] = torch.full((B,), S, dtype=torch.int32,

@@ -51,9 +51,9 @@ def _mlstm_qkv(p, cfg, xm: torch.Tensor):
     B, S, di = xm.shape
     H = cfg.num_heads
     hd = di // H
-    q = L.linear(p["wq"], xm).reshape(B, S, H, hd)
-    k = L.linear(p["wk"], xm).reshape(B, S, H, hd) / math.sqrt(float(hd))
-    v = L.linear(p["wv"], xm).reshape(B, S, H, hd)
+    q = L.reshape(L.linear(p["wq"], xm), B, S, H, hd)
+    k = L.reshape(L.linear(p["wk"], xm), B, S, H, hd) / math.sqrt(float(hd))
+    v = L.reshape(L.linear(p["wv"], xm), B, S, H, hd)
     logi = L.linear(p["wi"], xm).float()                    # [B, S, H]
     logf = F.logsigmoid(L.linear(p["wf"], xm).float())      # [B, S, H]
     return q, k, v, logi, logf
@@ -93,7 +93,11 @@ def mlstm_forward(p, cfg, x: torch.Tensor):
     """Chunkwise-parallel prefill.  x [B, S, D] → (y [B, S, D], state
     {"C", "n", "m"}).  S pads to whole chunks of min(MLSTM_CHUNK, S)
     with logi = −1e30 (no input) and logf = 0 (no forgetting), so the
-    padding leaves the state as it is."""
+    padding leaves the state as it is.  On DTensors the chunks run on
+    each device's batch rows (:func:`layers.on_rows`): the recurrences
+    are independent per row, and stepped op by op through DTensor (the
+    launch tooling's dry run) an xLSTM prefill's chunks and steps would
+    take hours."""
     B, S, D = x.shape
     xm, z = L.linear(p["up"], x).chunk(2, dim=-1)
     q, k, v, logi, logf = _mlstm_qkv(p, cfg, xm)
@@ -104,15 +108,20 @@ def mlstm_forward(p, cfg, x: torch.Tensor):
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         logi = F.pad(logi, (0, 0, 0, pad), value=NEG)
         logf = F.pad(logf, (0, 0, 0, pad))
-    st = mlstm_init_state(cfg, B, device=x.device)
-    state = (st["C"], st["n"], st["m"])
-    hs = []
-    for c0 in range(0, S + pad, Lc):
-        sl = slice(c0, c0 + Lc)
-        state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
-                                logi[:, sl], logf[:, sl])
-        hs.append(h.to(x.dtype))
-    out = torch.cat(hs, dim=1).reshape(B, S + pad, H * hd)[:, :S]
+
+    def scan(q, k, v, logi, logf):
+        st = mlstm_init_state(cfg, q.shape[0], device=q.device)
+        state = (st["C"], st["n"], st["m"])
+        hs = []
+        for c0 in range(0, S + pad, Lc):
+            sl = slice(c0, c0 + Lc)
+            state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
+                                    logi[:, sl], logf[:, sl])
+            hs.append(h.to(x.dtype))
+        return (torch.cat(hs, dim=1), *state)
+
+    h, *state = L.on_rows(scan, q, "bbbbb", "bbbb")(q, k, v, logi, logf)
+    out = h.reshape(B, S + pad, H * hd)[:, :S]
     out = L.rms_norm(p["norm"], out, cfg.norm_eps)
     y = L.linear(p["down"], out * F.silu(z))
     return y, dict(zip(("C", "n", "m"), state))
@@ -174,9 +183,10 @@ def _slstm_step(p, cfg, xt: torch.Tensor, state):
     h, c, n, m = state
     B, D = h.shape
     H = cfg.num_heads
-    rec = torch.einsum("bhd,ghde->gbhe", h.reshape(B, H, D // H),
-                       p["r"].float()).reshape(4, B, D)
-    pre = xt.float().reshape(B, 4, D).transpose(0, 1) + rec
+    rec = L.reshape(torch.einsum("bhd,ghde->gbhe",
+                                 L.reshape(h, B, H, D // H), p["r"].float()),
+                    4, B, D)
+    pre = L.reshape(xt.float(), B, 4, D).transpose(0, 1) + rec
     li, lf = pre[0], F.logsigmoid(pre[1])
     z, o = torch.tanh(pre[2]), torch.sigmoid(pre[3])
     m_new = torch.maximum(lf + m, li)
@@ -196,16 +206,21 @@ def _slstm_out(p, cfg, y: torch.Tensor) -> torch.Tensor:
 
 def slstm_forward(p, cfg, x: torch.Tensor):
     """x [B, S, D] → (y [B, S, D], state {"h", "c", "n", "m"}): the
-    recurrence stepped over time."""
-    B, S, D = x.shape
+    recurrence stepped over time (on DTensors, on each device's batch
+    rows, the recurrent weights replicated: :func:`layers.on_rows`)."""
     xg = L.linear(p["wx"], x)                               # [B, S, 4D]
-    state = slstm_init_state(cfg, B, device=x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(p, cfg, xg[:, t], state)
-        hs.append(state[0])
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # [B, S, D]
-    return _slstm_out(p, cfg, y), dict(zip(("h", "c", "n", "m"), state))
+
+    def scan(r, xg):
+        state = slstm_init_state(cfg, xg.shape[0], device=xg.device)
+        hs = []
+        for t in range(xg.shape[1]):
+            state = _slstm_step({"r": r}, cfg, xg[:, t], state)
+            hs.append(state[0])
+        return (torch.stack(hs, dim=1), *state)             # y [B, S, D]
+
+    y, *state = L.on_rows(scan, xg, "rb", "bbbbb")(p["r"], xg)
+    return (_slstm_out(p, cfg, y.to(x.dtype)),
+            dict(zip(("h", "c", "n", "m"), state)))
 
 
 def slstm_init_state(cfg, batch: int, device=None) -> tuple:
