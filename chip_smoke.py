@@ -327,6 +327,9 @@ HOST_MESH_DECODE = 2              # its granite decode steps
 # the LM slices' prefill time from their profiles: name → (device ms or
 # None where the profiler recorded no kernel, profiled wall ms)
 PREFILL_MS: dict = {}
+# the LM path's spans (category ``model``), ranges in a capture under an
+# active recorder
+LM_SPANS = ("prefill_step", "decode_step", "attention", "mlp", "moe_ffn")
 
 
 T0 = time.perf_counter()
@@ -1971,11 +1974,12 @@ def profile_lm(models, obs_trace, cfg, params, batch, name) -> None:
             del caches, logits
             events = prof.key_averages()
             cuda = torch.autograd.DeviceType.CUDA
-            # the region shows as a CPU range and, on the GPU timeline,
-            # as an annotation span: kernels are the other CUDA rows
+            # each of the model's spans shows as a CPU range and, on the
+            # GPU timeline, as an annotation span: kernels are the other
+            # CUDA rows
             region = [e for e in events if e.key == "moe_ffn"]
             rows = [e for e in events
-                    if e.device_type == cuda and e.key != "moe_ffn"]
+                    if e.device_type == cuda and e.key not in LM_SPANS]
             if not rows:
                 log(f"profile {name} {step}: wall_ms {wall_ms:.2f} "
                     "(profiled); device time not measured (no kernels "

@@ -1,0 +1,13 @@
+"""mlp_ms.prefill (ms): device time a traced prefill spends in the
+kernels launched inside the model's ``mlp`` ranges (``transformer._ffn``:
+the dense SwiGLU MLP, not the norm before it), per prefill."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.steps:
+        return None
+    inside = [d for d in t.launched_in("mlp") if d[3] == "kernel"]
+    if not inside:
+        return None
+    return sum(b - a for a, b, *_ in inside) / 1e3 / t.steps

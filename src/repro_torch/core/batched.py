@@ -387,8 +387,7 @@ def run_rounds(state: StepState, x, y, cfg: BoostConfig, cls,
     B, k = x.shape[:2]
     sched = canon_player_sched(player_sched, B, k, device=dev)
     with obs_trace.span("run_rounds", "engine", engine="batched", B=B,
-                        n=-1 if n is None else int(n)), \
-            obs_trace.annotate("run_rounds"):
+                        n=-1 if n is None else int(n)):
         state = _run_steps(x, y, sched, state, n, cfg, cls)[0]
         obs_trace.sync_if_tracing(dev)
     return state
@@ -618,8 +617,7 @@ def _run_to_end(x, y, alive, sched, state: StepState, cfg: BoostConfig,
     dev = state.hits.device
     xt, yt = as_tensor(x, dev), as_tensor(y, dev)
     with obs_trace.span("run_rounds", "engine", engine="batched",
-                        B=int(xt.shape[0]), n=-1), \
-            obs_trace.annotate("run_rounds"):
+                        B=int(xt.shape[0]), n=-1):
         state, steps = _run_steps(xt, yt, sched, state, None, cfg, cls)
         obs_trace.sync_if_tracing(dev)
     alive0 = np.ones(tuple(xt.shape[:3]), bool) if alive is None else alive

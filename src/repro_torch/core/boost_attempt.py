@@ -317,8 +317,7 @@ def run_boost_attempt(x, y, alive, key, cfg: BoostConfig, cls,
         else int(alive.sum())
     num_rounds = cfg.num_rounds(max(m, 2))
     with obs_trace.span("boost_attempt", "attempt", m_alive=m,
-                        bound=num_rounds) as sp, \
-            obs_trace.annotate("boost_attempt"):
+                        bound=num_rounds) as sp:
         out = boost_attempt_arrays(x, y, alive, None, key, cfg, cls,
                                    num_rounds, device=device)
         if obs_trace.enabled():

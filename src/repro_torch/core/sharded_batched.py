@@ -342,8 +342,7 @@ def _rounds(g: PlayersGroup, state: dict, x, y, cfg: BoostConfig, cls,
     B = int(state["attempt"].shape[0])
     with obs_trace.span("run_rounds", "engine", engine="sharded", B=B,
                         n=-1 if n is None else int(n),
-                        mesh_devices=g.size), \
-            obs_trace.annotate("run_rounds_sharded"):
+                        mesh_devices=g.size):
         out = _rounds_body(g, state, x, y, cfg, cls, n, player_sched,
                            no_center)
         obs_trace.sync_if_tracing(g.device)

@@ -28,6 +28,7 @@ from repro_torch.configs.base import (DEFAULT_SWA_WINDOW, ModelConfig,
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
 
@@ -136,19 +137,22 @@ class Model:
         cfg = self.cfg
 
         def prefill_step(params, batch):
-            tokens = batch["tokens"]
-            if cfg.encoder_layers:
-                enc_out = encdec.encode(params, cfg, batch["frames"])
-                cross = encdec.build_cross_cache(params, cfg, enc_out)
-                self_cache = encdec.init_self_cache(
-                    cfg, tokens.shape[0], int(tokens.shape[1]) + 1,
-                    tokens.device)
-                logits, _ = encdec.decode_train(params, cfg, enc_out, tokens)
-                return logits[:, -1], (cross, self_cache)
-            logits, _, caches = transformer.prefill(
-                params, cfg, tokens, prefix_embeds=batch.get("prefix_embeds"),
-                use_flash=self.use_flash, window=window)
-            return logits, caches
+            with obs_trace.span("prefill_step", "model"):
+                tokens = batch["tokens"]
+                if cfg.encoder_layers:
+                    enc_out = encdec.encode(params, cfg, batch["frames"])
+                    cross = encdec.build_cross_cache(params, cfg, enc_out)
+                    self_cache = encdec.init_self_cache(
+                        cfg, tokens.shape[0], int(tokens.shape[1]) + 1,
+                        tokens.device)
+                    logits, _ = encdec.decode_train(params, cfg, enc_out,
+                                                    tokens)
+                    return logits[:, -1], (cross, self_cache)
+                logits, _, caches = transformer.prefill(
+                    params, cfg, tokens,
+                    prefix_embeds=batch.get("prefix_embeds"),
+                    use_flash=self.use_flash, window=window)
+                return logits, caches
 
         return prefill_step
 
@@ -156,13 +160,14 @@ class Model:
         cfg = self.cfg
 
         def decode_step(params, caches, tokens):
-            if cfg.encoder_layers:
-                cross, self_cache = caches
-                logits, self_cache = encdec.decode_step(
-                    params, cfg, cross, self_cache, tokens)
-                return logits, (cross, self_cache)
-            return transformer.decode_step(params, cfg, caches, tokens,
-                                           window=window)
+            with obs_trace.span("decode_step", "model"):
+                if cfg.encoder_layers:
+                    cross, self_cache = caches
+                    logits, self_cache = encdec.decode_step(
+                        params, cfg, cross, self_cache, tokens)
+                    return logits, (cross, self_cache)
+                return transformer.decode_step(params, cfg, caches, tokens,
+                                               window=window)
 
         return decode_step
 

@@ -98,9 +98,10 @@ def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash,
     hint, as the reference's serving path does."""
     hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
     if mixer == "attn":
-        out, k, v = attention.full_attention(
-            p["mixer"], cfg, hn, positions, causal=True, window=window,
-            use_flash=use_flash, constrain_layout=collect_cache)
+        with obs_trace.span("attention", "model"):
+            out, k, v = attention.full_attention(
+                p["mixer"], cfg, hn, positions, causal=True, window=window,
+                use_flash=use_flash, constrain_layout=collect_cache)
         cache = {"k": k, "v": v}
     elif mixer == "mamba":
         out, cache = ssm.forward(p["mixer"], cfg, hn)
@@ -116,15 +117,18 @@ def _apply_block(p, cfg, mixer, ffn, h, positions, *, window, use_flash,
 
 def _ffn(p, cfg, ffn, h):
     """The layer's FFN on its residual stream: (h, the MoE's aux, None
-    for another FFN).  The MoE (not its norm) runs inside a ``moe_ffn``
-    span, which a profiler capture under an active recorder shows with
-    its kernels."""
+    for another FFN).  The MLP runs inside an ``mlp`` span, the MoE
+    inside a ``moe_ffn`` span, their norm outside either; a profiler
+    capture under an active recorder shows each span with its
+    kernels."""
     if ffn == "mlp":
-        return h + L.mlp(p["ffn"], L.rms_norm(p["norm2"], h,
-                                              cfg.norm_eps)), None
+        x = L.rms_norm(p["norm2"], h, cfg.norm_eps)
+        with obs_trace.span("mlp", "model"):
+            y = L.mlp(p["ffn"], x)
+        return h + y, None
     if ffn == "moe":
         x = L.rms_norm(p["norm2"], h, cfg.norm_eps)
-        with obs_trace.annotate("moe_ffn"):
+        with obs_trace.span("moe_ffn", "model"):
             y, aux = moe.apply(p["ffn"], cfg, x)
         return h + y, aux
     return h, None
@@ -231,8 +235,9 @@ def _decode_block(p, cfg, mixer, ffn, h, cache, *, window):
     """One layer on one new token: (h, the layer's new cache)."""
     hn = L.rms_norm(p["norm1"], h, cfg.norm_eps)
     if mixer == "attn":
-        out, cache = attention.decode_attention(p["mixer"], cfg, hn, cache,
-                                                window=window)
+        with obs_trace.span("attention", "model"):
+            out, cache = attention.decode_attention(p["mixer"], cfg, hn,
+                                                    cache, window=window)
     elif mixer == "mamba":
         out, cache = ssm.decode_step(p["mixer"], cfg, hn, cache)
     elif mixer == "mlstm":

@@ -2,8 +2,10 @@
 tracing and metrics, both off by default and free when off.
 
 * :mod:`repro_torch.obs.trace` — span/event recorder writing Chrome
-  trace JSON (Perfetto), with ``torch.profiler`` hooks so device
-  activity nests under the protocol spans;
+  trace JSON (Perfetto) on the profiler's clock; each span is also a
+  ``torch.profiler`` range, so device activity nests under the protocol
+  spans and the LM path's (``prefill_step``, ``decode_step``,
+  ``attention``, ``mlp``, ``moe_ffn``);
 * :mod:`repro_torch.obs.metrics` — counters, gauges and fixed-bucket
   latency histograms the scheduler and the checkpointer publish into;
 * :mod:`repro_torch.obs.roundtrace` — an engine driven one wire round

@@ -14,17 +14,25 @@ Span taxonomy, names, categories and args are the reference's:
 attempt spans carry a ``task_bits`` args dict — per-task wire bits by
 ledger category — which :func:`repro_torch.obs.roundtrace.validate_trace`
 holds bit for bit to the Theorem 4.1 ledger, so one trace validator
-reads the reference's traces and the port's.
+reads the reference's traces and the port's.  The LM path adds the
+category ``model``: ``prefill_step`` and ``decode_step`` around a
+serving step, ``attention``, ``mlp`` and ``moe_ffn`` inside each
+layer (``models/model.py``, ``models/transformer.py``).
 
 Tracing is disabled by default.  :func:`span` and :func:`instant`
 return a preallocated no-op when no recorder is active, so an
-instrumented call pays one ``is None`` test.  Spans wrap engine calls;
-none runs inside a round's body.
+instrumented call pays one ``is None`` test.  No span synchronises:
+an engine that wants its span to cover the device's work calls
+:func:`sync_if_tracing` inside it.
 
-Device-side nesting: :func:`annotate` is
-``torch.profiler.record_function`` under an active recorder, so a
-profiler capture (:func:`device_trace`) shows the device's kernels
-under the host spans of the same region.
+Device-side nesting: a span also opens
+``torch.profiler.record_function`` of its name, so a profiler capture
+(:func:`device_trace`) shows each span as a range with the kernels
+launched inside it.  The recorder stamps ``ts`` on the profiler's
+clock, Unix microseconds (what an exported capture's ``ts +
+baseTimeNanoseconds / 1000`` gives), so a ``serve --trace-out`` file
+and a capture of the same process line up; durations come from a
+monotonic clock.
 """
 
 from __future__ import annotations
@@ -85,7 +93,7 @@ class Span:
     bits) computed inside the region.
     """
 
-    __slots__ = ("_rec", "name", "cat", "args", "_t0")
+    __slots__ = ("_rec", "name", "cat", "args", "_t0", "_range")
 
     def __init__(self, rec: "TraceRecorder", name: str, cat: str,
                  args: dict):
@@ -94,15 +102,19 @@ class Span:
         self.cat = cat
         self.args = args
         self._t0 = 0.0
+        self._range = None
 
     def update(self, **args) -> None:
         self.args.update(args)
 
     def __enter__(self) -> "Span":
         self._t0 = time.perf_counter()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
+        self._range.__exit__(*exc)
         self._rec._complete(self.name, self.cat, self._t0,
                             time.perf_counter(), self.args)
         return False
@@ -112,23 +124,26 @@ class TraceRecorder:
     """Append-only event sink (list.append is atomic, so the checkpoint
     writer thread may emit into it too).
 
-    ``ts`` is microseconds since the recorder's construction; the
+    ``ts`` is Unix microseconds, the profiler's clock: one
+    (``perf_counter``, ``time_ns``) pair taken at construction maps the
+    monotonic clock onto it, and ``dur`` is the monotonic clock's.  The
     ledger validator reads ``args`` payloads, never timestamps.
     """
 
     def __init__(self):
         self.events: list[dict] = []
         self._epoch = time.perf_counter()
+        self._unix_us = time.time_ns() / 1e3
         self._pid = os.getpid()
 
     def _us(self, t: float) -> float:
-        return (t - self._epoch) * 1e6
+        return self._unix_us + (t - self._epoch) * 1e6
 
     def _complete(self, name: str, cat: str, t0: float, t1: float,
                   args: dict) -> None:
         self.events.append({
             "name": name, "cat": cat, "ph": "X",
-            "ts": self._us(t0), "dur": max(self._us(t1) - self._us(t0), 0.0),
+            "ts": self._us(t0), "dur": max((t1 - t0) * 1e6, 0.0),
             "pid": self._pid, "tid": threading.get_ident(),
             "args": args})
 
@@ -201,7 +216,8 @@ def recording(recorder: TraceRecorder | None = None):
 
 
 def span(name: str, cat: str = "protocol", **args):
-    """A timing span when tracing is on, the shared no-op when off."""
+    """A timing span, and a profiler range of its name, when tracing is
+    on; the shared no-op when off."""
     rec = _ACTIVE
     if rec is None:
         return _NULL_SPAN
@@ -212,15 +228,6 @@ def instant(name: str, cat: str = "protocol", **args) -> None:
     rec = _ACTIVE
     if rec is not None:
         rec.instant(name, cat, **args)
-
-
-def annotate(name: str):
-    """``torch.profiler.record_function(name)`` under an active
-    recorder — a profiler capture then shows the device activity of the
-    region under its name; the no-op otherwise."""
-    if _ACTIVE is None:
-        return _NULL_SPAN
-    return torch.profiler.record_function(name)
 
 
 def sync_if_tracing(device: torch.device) -> None:
@@ -236,8 +243,8 @@ def device_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace (CPU and, on a host with a
     card, CUDA activity) and write it as Chrome trace JSON into
     ``log_dir`` (``trace.json``); yields the profiler, whose events the
-    caller may read after the block.  The :func:`annotate` regions
-    frame the device activity."""
+    caller may read after the block.  Under an active recorder the
+    spans frame the device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -686,3 +686,39 @@ def float32_logits(arch, mode):
         got = models.build(cfg).logits(params,
                                        {"tokens": torch.from_numpy(toks)})[0]
     return got.numpy(), np.asarray(want)
+
+
+@functools.cache
+def _span_counts(arch, traced):
+    """Ranges of each name in a CPU profiler capture of one prefill and
+    one decode step of reduced(arch), under a trace recorder or not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace as obs_trace
+
+    _, cfg, _, params = _model(arch)
+    model = models.build(cfg)
+    toks = torch.from_numpy(_tokens(cfg, (2, 8)))
+    with (obs_trace.recording() if traced else contextlib.nullcontext()), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, caches = model.make_prefill_step()(params, {"tokens": toks[:, :7]})
+        model.make_decode_step()(params, caches, toks[:, 7:])
+    return cfg, {e.key: e.count for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("span", ["prefill_step", "decode_step", "attention",
+                                  "mlp", "moe_ffn"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-moe-3b-a800m"])
+def test_lm_spans_frame_each_step_and_layer(arch, span):
+    """Under a trace recorder a profiler capture of a prefill and a
+    decode step shows ``prefill_step`` and ``decode_step`` once each,
+    ``attention`` once per layer and step, and the layer's FFN span
+    (``mlp`` dense, ``moe_ffn`` MoE) once per layer and step; with no
+    recorder it shows none of them."""
+    cfg, counts = _span_counts(arch, True)
+    per_layer = 2 * cfg.num_layers
+    want = {"prefill_step": 1, "decode_step": 1, "attention": per_layer,
+            "mlp": 0 if cfg.num_experts else per_layer,
+            "moe_ffn": per_layer if cfg.num_experts else 0}[span]
+    assert counts.get(span, 0) == want
+    assert _span_counts(arch, False)[1].get(span, 0) == 0

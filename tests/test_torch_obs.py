@@ -19,11 +19,14 @@ reference's.
 
 import json
 import os
+import tempfile
+import time
 
 import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core import batched as j_batched
 from repro.core import sharded_batched as j_sharded
@@ -90,7 +93,10 @@ def test_disabled_tracing_is_shared_noop():
     with sp as s:
         s.update(ignored=True)
     T.instant("nothing")
-    assert T.annotate("run_rounds") is sp   # no profiler range either
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            T.span("run_rounds"):
+        pass
+    assert "run_rounds" not in {e.key for e in prof.key_averages()}
     assert T.active() is None
 
 
@@ -113,6 +119,38 @@ def test_recording_scope_and_span_args(tmp_path):
         doc = json.load(f)
     assert doc["displayTimeUnit"] == "ms"
     assert doc["traceEvents"] == rec.events
+
+
+def test_span_is_a_profiler_range_on_the_profiler_clock():
+    """A span under a recorder is also a profiler range of its name, and
+    its recorder ``ts`` is the range's ``ts + baseTimeNanoseconds/1000``
+    (Unix µs) within 1 ms: a ``--trace-out`` file lines up with a
+    capture of the same process."""
+    with T.recording() as rec:
+        with T.span("warm"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(5):
+                with T.span("ranged", "model"):
+                    torch.ones(8).sum()
+                time.sleep(0.002)
+    doc = _chrome_trace(prof)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    ranges = sorted(e["ts"] + base_us for e in doc["traceEvents"]
+                    if e.get("name") == "ranged" and e.get("ph") == "X")
+    spans = [e["ts"] for e in rec.events if e["name"] == "ranged"]
+    assert len(ranges) == len(spans) == 5
+    gaps = sorted(abs(a - b) for a, b in zip(ranges, spans))
+    assert gaps[2] < 1e3, gaps
+    assert abs(spans[0] - time.time_ns() / 1e3) < 60e6
+
+
+def _chrome_trace(prof) -> dict:
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
 
 
 def test_span_records_event_even_when_body_raises():
