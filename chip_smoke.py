@@ -8,7 +8,9 @@ on the card (mw_update unshifted and shifted, one launch a call; the
 histogram on its three routes, ``sort``, ``tiled`` and ``chunked``;
 the stump's sort route on special values too; flash attention on both
 routes: ``wgmma``
-for bf16, ``cuda_cores`` for float32), times each at its path's
+for bf16, ``cuda_cores`` for float32; decode attention at every head
+dim the registry decodes with, split and unsplit, over a wrapped ring
+and a window, with its slot write), times each at its path's
 shapes by CUDA events around the call and by the profiler's device
 time per launch, checks with ``cuobjdump -sass``
 that the bf16 flash kernels are built from wgmma and TMA (HGMMA,
@@ -23,8 +25,9 @@ UTMALDG), and drives the port's paths through
   on the kernel's ``sort`` route;
 * LM serving — deepseek-7b at full width and depth (30 layers, d_model
   4096), 4 prompts of 2048 tokens prefilled through the flash kernel
-  (every launch on its wgmma route) and 32 tokens decoded greedily,
-  checked against an einsum prefill of the same params and tokens;
+  (every launch on its wgmma route) and 32 tokens decoded greedily
+  (one decode attention call per layer and step), checked against an
+  einsum prefill of the same params and tokens;
 * the other LM families — granite-moe-3b-a800m at full width and depth
   (the MoE headline: 32 layers, 40 experts top-8, the same shape, 32
   flash launches, flash against einsum, a profile with the MoE FFN's
@@ -172,6 +175,18 @@ FLASH_PIXTRAL = (4, 3072, 32, 8, 160)
 FLASH_WIDE = [FLASH_MAIN, FLASH_QWEN, (1, 2000, 8, 2, 128),
               (2, 40, 4, 2, 64), (1, 300, 4, 2, 256), (1, 384, 16, 2, 128),
               FLASH_MOE, FLASH_PIXTRAL]
+# decode attention (B, C slots, live slots, H, KV, hd): deepseek-7b's
+# decode cell (portbench decode-b32: 32 sequences, 2048 slots, 1536
+# live at a round's start) and granite-moe-3b-a800m's widths at the same
+# batch; then checks against the plain version at every head dim the
+# registry decodes with, split and unsplit, a wrapped ring (len past
+# C) and a window: (B, C, lens, H, KV, hd, window)
+DECODE_MAIN = (32, 2048, 1536, 32, 32, 128)
+DECODE_GRANITE = (32, 2048, 1536, 24, 8, 64)
+DECODE_CHECKS = [(4, 2048, [2048, 2100, 1536, 7], 32, 32, 128, 0),
+                 (4, 2048, [2049, 1000, 2047, 0], 24, 8, 64, 0),
+                 (2, 1024, [1500, 900], 64, 8, 80, 300),
+                 (2, 3072, [3100, 40], 32, 8, 160, 0)]
 SCEN_ARGS = ["--workload", "classify", "--cls", "stumps", "--scenario",
              "boundary", "--noise", "8", "--batch", "16", "--m",
              str(1 << 16), "--k", "4", "--features", "8", "--coreset",
@@ -963,7 +978,8 @@ def drive(serve, argv, name):
     total_s = time.perf_counter() - t0
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
     log(f"{name}:", json.dumps(out))
-    check(launches == {**out["kernel_launches"], "flash_attention": 0},
+    check(launches == {**out["kernel_launches"], "flash_attention": 0,
+                       "decode_attention": 0},
           f"{name}: launch counts {launches} != {out['kernel_launches']}")
     check(launches["mw_update"] == res.steps,
           f"{name}: mw_update launches {launches['mw_update']} != engine "
@@ -1455,7 +1471,7 @@ def drive_stream(serve, argv, name, ckpt_dir=None):
     launches = {k: ops.launches for k, (_, ops) in serve.KERNELS.items()}
     log(f"{name}:", json.dumps(out))
     check(launches == {**out["kernel_launches"], "stump": 0,
-                       "flash_attention": 0},
+                       "flash_attention": 0, "decode_attention": 0},
           f"{name}: launch counts {launches} != {out['kernel_launches']}")
     results = {id(c.result): c.result for c in done}.values()
     steps = sum(r.steps for r in results)
@@ -1585,7 +1601,8 @@ def phase_serve_stream_sharded(serve) -> dict:
             names = set(json.load(f))
     log("sharded stream:", json.dumps(out))
     check(launches == {**out["kernel_launches"], "stump": 0,
-                       "flash_attention": 0} and launches["mw_update"] > 0,
+                       "flash_attention": 0, "decode_attention": 0}
+          and launches["mw_update"] > 0,
           f"sharded stream: launches {launches}, JSON "
           f"{out['kernel_launches']}")
     check(out["ledger_validated"] == out["ok"] > 0,
@@ -1877,6 +1894,106 @@ def phase_flash(ops, kernel, build) -> dict:
             "float32_route": fp32, "sass": sass}
 
 
+def decode_inputs(B, C, lens, H, KV, hd, seed):
+    """q, the token's k and v, the cache (every slot filled, live or
+    not) in bf16, and lens int32 [B], on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ts = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+          for shape in ((B, 1, H, hd), (B, 1, KV, hd), (B, 1, KV, hd),
+                        (B, C, KV, hd), (B, C, KV, hd))]
+    return (*ts, torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def decode_work(B, live, H, KV, hd) -> tuple[int, int]:
+    """(FLOPs, bytes) of one decode attention call: 4·hd per (query
+    head, live slot or the token itself); the live K/V read once, q
+    read and the output written, the token's k and v read and written
+    into the cache, all bf16."""
+    return (4 * hd * B * H * (live + 1),
+            2 * (2 * B * KV * live * hd + 2 * B * H * hd + 4 * B * KV * hd))
+
+
+def time_decode(ops, kernel, shape, seed) -> dict:
+    """The kernel at one shape beside its plain version and SDPA
+    (``scaled_dot_product_attention`` over the live keys, GQA; the port
+    never calls it), with the bytes bound of the function."""
+    B, C, live, H, KV, hd = shape
+    args = decode_inputs(B, C, [live] * B, H, KV, hd, seed)
+    want = ops.decode_attention(*args, interpret=True)
+    before = ops.launches
+    got = ops.decode_attention(*args)
+    torch.cuda.synchronize()
+    check(ops.launches == before + 1, "decode attention: launches did not "
+          "count the call")
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=LM_TOL,
+                         atol=LM_TOL),
+          f"decode attention {list(shape)}: max_abs_err {err}")
+    kernel_ms = time_ms(lambda: ops.decode_attention(*args), reps=50)
+    dev_ms, parts = device_ms(lambda: ops.decode_attention(*args), calls=20)
+    plain_ms = time_ms(lambda: ops.decode_attention(*args, interpret=True),
+                       reps=5, warm=1)
+    q = args[0].transpose(1, 2).contiguous()
+    k, v = (t[:, :live].transpose(1, 2).contiguous() for t in args[3:5])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q, k, v, enable_gqa=KV != H), reps=50)
+    flops, nbytes = decode_work(B, live, H, KV, hd)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    share = bound_ms / (dev_ms if dev_ms else kernel_ms)
+    splits = kernel.plan(B, KV, H // KV, hd, C).splits
+    log(f"decode attention {list(shape)} splits {splits}: kernel_ms "
+        f"{kernel_ms:.4f} (CUDA events) device_ms {fmt_ms(dev_ms)} "
+        f"(profiler: {parts}) plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (scaled_dot_product_attention over the live "
+        f"keys) bound_ms {bound_ms:.4f} ({nbytes} bytes at 3.35 TB/s; "
+        f"{flops} FLOP) share_of_bound {share:.4f}; max abs error to the "
+        f"plain version {err:.3g}")
+    return {"shape": list(shape), "splits": splits, "ms": kernel_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": share,
+            "max_abs_err": err}
+
+
+def phase_decode_attention(ops, kernel) -> dict:
+    """The decode attention kernel against its plain version (bf16
+    weights in P·V, where the kernel keeps them in float32) at
+    ``DECODE_CHECKS`` and timed at deepseek-7b's decode cell and
+    granite's widths.  Returns its JSON entry (without launches)."""
+    max_abs = 0.0
+    for i, (B, C, lens, H, KV, hd, window) in enumerate(DECODE_CHECKS):
+        args = decode_inputs(B, C, lens, H, KV, hd, seed=300 + i)
+        plain_cache = [t.clone() for t in args[3:5]]
+        want = ops.decode_attention(*args[:3], *plain_cache, args[5], window,
+                                    interpret=True)
+        got = ops.decode_attention(*args, window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.allclose(got.float(), want.float(), rtol=LM_TOL,
+                             atol=LM_TOL)
+              and torch.equal(args[3], plain_cache[0])
+              and torch.equal(args[4], plain_cache[1]),
+              f"decode attention {B, C, lens, H, KV, hd, window}: max_abs_err "
+              f"{err}, or the slot write differs")
+        max_abs = max(max_abs, err)
+        log(f"decode attention B {B} C {C} lens {lens} {H}/{KV} heads of "
+            f"{hd} window {window} splits "
+            f"{kernel.plan(B, KV, H // KV, hd, C).splits}: max_abs_err "
+            f"{err:.3g} <= {LM_TOL}, cache write equal")
+    main = time_decode(ops, kernel, DECODE_MAIN, seed=12)
+    granite = time_decode(ops, kernel, DECODE_GRANITE, seed=13)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "decode_attention.cu",
+            "replaces": None, "max_abs_err": max(max_abs, main["max_abs_err"],
+                                                 granite["max_abs_err"]),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["library_ms"],
+            "share_of_bound": main["share_of_bound"], "path": "lm",
+            "paths": {"lm": main, "granite-moe-3b-a800m": granite}}
+
+
 @contextlib.contextmanager
 def float32_products(layers):
     """Run the model's products in float32 instead of bf16 (the
@@ -1891,6 +2008,26 @@ def float32_products(layers):
     finally:
         for f, d in zip(fns, saved):
             f.__defaults__ = d
+
+
+@contextlib.contextmanager
+def plain_decode_attention():
+    """Run the models' decode attention through its plain version on the
+    card (``interpret=True``: the einsum math that a DTensor cache runs)
+    in place of the kernel, so a check of the DTensor route against the
+    plain model compares the same attention."""
+    from repro_torch.kernels.decode_attention import ops
+
+    run = ops.decode_attention
+
+    def plain(*args, **kw):
+        return run(*args, **kw, interpret=True)
+
+    ops.decode_attention = plain
+    try:
+        yield
+    finally:
+        ops.decode_attention = run
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2025,10 +2162,20 @@ def flash_per_prefill(cfg, transformer) -> int:
     return sum(m == "attn" for m, _ in transformer.layer_kinds(cfg))
 
 
+def decode_per_step(cfg, transformer) -> int:
+    """Decode attention calls a decode step makes: one per attention
+    layer of a decoder-only stack, one per decoder layer (its
+    self-attention) of the encoder-decoder."""
+    if cfg.encoder_layers:
+        return cfg.num_layers
+    return sum(m == "attn" for m, _ in transformer.layer_kinds(cfg))
+
+
 def drive_lm(serve, transformer, adamw, argv, name, cfg=None):
     """``serve.run_lm`` of ``argv`` (``cfg`` cuts depth) with every
     kernel's count set to 0 just before and read just after: one flash
-    launch per attention layer, every one on the wgmma route, no other
+    launch per attention layer, every one on the wgmma route, one
+    decode attention call per attention layer and decode step, no other
     kernel; finite logits and tokens.  Logs the init's seconds, the
     parameters (leaves), prefill_s, decode_s_per_token and peak memory.
     Returns (run, launches, flash routes)."""
@@ -2049,7 +2196,12 @@ def drive_lm(serve, transformer, adamw, argv, name, cfg=None):
           f"{name}: flash launches {launches} != {want} attention layers")
     check(routes == {"wgmma": want, "cuda_cores": 0},
           f"{name}: flash routes {routes}, not all {want} on wgmma")
-    check(not any(n for k, n in launches.items() if k != "flash_attention"),
+    decoded = decode_per_step(cfg, transformer) * args.gen
+    check(out["kernel_launches"]["decode_attention"]
+          == launches["decode_attention"] == decoded,
+          f"{name}: decode attention calls {launches} != {decoded}")
+    check(not any(n for k, n in launches.items()
+                  if k not in ("flash_attention", "decode_attention")),
           f"{name} launched a protocol kernel: {launches}")
     check(bool(torch.isfinite(run.prefill_logits).all())
           and bool(torch.isfinite(run.logits).all()),
@@ -2455,7 +2607,9 @@ def phase_host_mesh(models, configs, prng, mesh_lib, sharding) -> dict:
     """``make_host_mesh()``: a (1, 1) mesh on the card over a 1-rank
     NCCL world, gone after the block.  deepseek-7b and
     granite-moe-3b-a800m at full width, depth cut to HOST_MESH_LAYERS
-    (einsum attention, no kernel), on DTensors placed by
+    (einsum attention, no kernel: the plain model's decode runs the
+    decode attention's plain version, as a DTensor cache does), on
+    DTensors placed by
     ``param_specs``, ``batch_partition`` and ``cache_partition``,
     against the plain model on the same parameters and tokens: the
     prefill's last-token logits and, for granite, HOST_MESH_DECODE
@@ -2500,7 +2654,8 @@ def phase_host_mesh(models, configs, prng, mesh_lib, sharding) -> dict:
                 cache, cfg, dshape, mcfg), mesh)
             tok = plain.argmax(-1).to(torch.int32)[:, None]
             for _ in range(steps):
-                plain, pcache = decode(params, pcache, tok)
+                with plain_decode_attention():
+                    plain, pcache = decode(params, pcache, tok)
                 logits, cache = decode(placed, cache, sharding.distribute(
                     tok, sharding.P(mcfg.batch_axes, None), mesh))
                 errs["decode"] = max(errs.get("decode", 0.0), (
@@ -2557,6 +2712,8 @@ def main() -> int:
     from repro_torch.models import frontend, layers, transformer
     from repro_torch.optim import adamw
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.histogram import ops as hist_ops
@@ -2601,7 +2758,10 @@ def main() -> int:
                "stump": phase("stump", phase_stump, stump_ops,
                               stump_kernel),
                "flash_attention": phase("flash attention", phase_flash,
-                                        flash_ops, flash_kernel, _build)}
+                                        flash_ops, flash_kernel, _build),
+               "decode_attention": phase("decode attention",
+                                         phase_decode_attention, decode_ops,
+                                         decode_kernel)}
     entries["histogram"]["paths"]["chunked_roofline"] = phase(
         "chunked histogram", phase_chunked_histogram, hist_ops, hist_ref)
     # 4. the integer-track path at full size

@@ -96,6 +96,8 @@ from repro_torch.core.pinned import pinned_argmax
 from repro_torch.core.types import BoostConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.histogram import kernel as hist_kernel
@@ -112,11 +114,12 @@ from repro_torch.obs import trace as obs_trace
 KERNELS = {"mw_update": (mw_kernel, mw_ops),
            "histogram": (hist_kernel, hist_ops),
            "stump": (stump_kernel, stump_ops),
-           "flash_attention": (flash_kernel, flash_ops)}
+           "flash_attention": (flash_kernel, flash_ops),
+           "decode_attention": (decode_kernel, decode_ops)}
 # the kernels each workload's path can launch, which its JSON reports
 PATH_KERNELS = {"classify": ("mw_update", "histogram", "stump"),
                 "serve-stream": ("mw_update", "histogram"),
-                "lm": ("flash_attention",)}
+                "lm": ("flash_attention", "decode_attention")}
 
 
 def _build_kernels(dev: torch.device) -> None:

@@ -1,5 +1,6 @@
-"""GQA attention with a KV cache, sliding window, optional qk-norm and
-the flash kernel — the port of ``repro.models.attention``.
+"""GQA attention with a KV cache, sliding window, optional qk-norm, the
+flash kernel (prefill) and the decode attention kernel — the port of
+``repro.models.attention``.
 
 Layouts, as in the reference:
   q:      [B, S, H,  hd]
@@ -34,6 +35,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import prng
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
@@ -217,42 +220,42 @@ def init_cache(cfg, batch: int, capacity: int, device,
 def decode_attention(p, cfg, x, cache, *, window=0, use_rope=True):
     """One-token decode: attend to the ring cache and to the token
     itself, then write the token's K/V at slot ``len % C`` in place.
+    A plain cache goes to the decode attention kernel's wrapper (the
+    kernel on the card, its plain version on the CPU), a DTensor cache
+    (the dry run's) to the einsum path.
 
     x: [B, 1, D].  Returns (out [B, 1, D], cache)."""
-    B = x.shape[0]
-    C = cache["k"].shape[1]
     pos = cache["len"][:, None]                            # [B, 1]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, pos, pos, use_rope,
                                    constrain_layout=True)
+    if isinstance(cache["k"], DTensor):
+        out = _decode_dtensor(q, k_new, v_new, cache, window)
+    else:
+        out = decode_ops.decode_attention(q, k_new, v_new, cache["k"],
+                                          cache["v"], cache["len"], window)
+    cache["len"] = cache["len"] + 1
+    return L.linear(p["wo"], out), cache
+
+
+def _decode_dtensor(q, k_new, v_new, cache, window):
+    """:func:`decode_attention`'s attention and slot write over a
+    DTensor cache: the einsum core, on each device's (batch, head)
+    block where :func:`_blocks` finds one, and the slot-mask write."""
     k_all, v_all = cache["k"], cache["v"]
-    # slots written in the last min(len, C) steps are live
-    slots = torch.arange(C, dtype=torch.int32, device=x.device)[None, :]
-    ln = cache["len"][:, None]
-    live = slots < torch.clamp(ln, max=C)
-    if window > 0:
-        # absolute position of slot s (ring): the latest write wins
-        abs_pos = torch.where(slots < ln % max(C, 1),
-                              ln - ln % C + slots,
-                              ln - ln % C - C + slots)
-        live &= abs_pos > ln - window
-        live &= abs_pos >= 0
+    C = k_all.shape[1]
+    live = decode_ref.live_slots(cache["len"], C, window)
     blocks = _blocks(q, k_new, v_new)
     core = _decode_core
     if blocks is not None and Shard(1) not in k_all.placements:
         # a cache sharded on its slots stays so (long_500k's)
         core = L.on_local(core, *blocks, "hhhhhm", "h")
     out = core(q, k_new, v_new, k_all, v_all, live)
+    slots = torch.arange(C, dtype=torch.int32, device=q.device)[None, :]
     widx = (cache["len"] % C).long()
-    if isinstance(k_all, DTensor):
-        hit = (slots == widx[:, None])[:, :, None, None]     # [B, C, 1, 1]
-        _write_slot(k_all, k_new, hit)
-        _write_slot(v_all, v_new, hit)
-    else:
-        rows = torch.arange(B, device=x.device)
-        k_all[rows, widx] = k_new[:, 0]
-        v_all[rows, widx] = v_new[:, 0]
-    cache["len"] = cache["len"] + 1
-    return L.linear(p["wo"], out), cache
+    hit = (slots == widx[:, None])[:, :, None, None]         # [B, C, 1, 1]
+    _write_slot(k_all, k_new, hit)
+    _write_slot(v_all, v_new, hit)
+    return out
 
 
 def _decode_core(q, k_new, v_new, k_all, v_all, live):

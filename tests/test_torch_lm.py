@@ -433,7 +433,8 @@ def cli_lm(arch, *flags):
     assert len(lines) == 1
     out = json.loads(lines[0])
     assert out["arch"] == arch + "-smoke" and out["device"] == "cpu"
-    assert out["kernel_launches"] == {"flash_attention": 0}
+    assert out["kernel_launches"] == {"flash_attention": 0,
+                                      "decode_attention": 0}
     assert out["tokens_finite"] and len(out["sample"]) == 4
     return out
 

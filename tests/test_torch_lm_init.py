@@ -152,7 +152,8 @@ def _serve_both(arch, seed):
 def test_serve_sample_equals_reference(arch, seed):
     ref, out, _ = _serve_both(arch, seed)
     assert out["sample"] == ref["sample"]
-    assert out["kernel_launches"] == {"flash_attention": 0}
+    assert out["kernel_launches"] == {"flash_attention": 0,
+                                      "decode_attention": 0}
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "command-r-35b"])

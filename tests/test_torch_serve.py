@@ -74,7 +74,8 @@ def test_serve_lm_cpu_prints_one_json_line():
     assert out["device"] == "cpu" and out["flash"] is True
     assert out["tokens_finite"] and len(out["sample"]) == 4
     assert all(0 <= t < 512 for t in out["sample"])
-    assert out["kernel_launches"] == {"flash_attention": 0}
+    assert out["kernel_launches"] == {"flash_attention": 0,
+                                      "decode_attention": 0}
 
 
 def test_serve_lm_flags_parse_as_in_the_reference():
