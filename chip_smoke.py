@@ -2082,7 +2082,8 @@ def phase_lm_slice(serve, models, layers, transformer, adamw, obs_trace,
 
 def profile_lm(models, obs_trace, cfg, params, batch, name) -> None:
     """Where a prefill's and a decode step's device time goes (the flash
-    model): wall ms a step (profiled), device ms a step, the device's
+    model; the decode steps after the decode graph's warm-up and
+    capture): wall ms a step (profiled), device ms a step, the device's
     busy share, kernels a step, flash's share and the top kernels; for
     an MoE config the MoE FFN's share too — the device time of the
     kernels launched inside the model's ``moe_ffn`` spans, which the
@@ -2096,6 +2097,11 @@ def profile_lm(models, obs_trace, cfg, params, batch, name) -> None:
         for step, steps in (("prefill", 1), ("decode", 4)):
             if step == "decode":
                 logits, caches = prefill(params, batch)
+                # the decode graph's warm-up and capture, outside the
+                # profile: it then holds the replays
+                for _ in range(2):
+                    logits, caches = decode(params, caches,
+                                            batch["tokens"][:, :1])
                 torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2176,16 +2182,30 @@ def drive_lm(serve, transformer, adamw, argv, name, cfg=None):
     kernel's count set to 0 just before and read just after: one flash
     launch per attention layer, every one on the wgmma route, one
     decode attention call per attention layer and decode step, no other
-    kernel; finite logits and tokens.  Logs the init's seconds, the
-    parameters (leaves), prefill_s, decode_s_per_token and peak memory.
-    Returns (run, launches, flash routes)."""
+    kernel; finite logits and tokens; the decode step replayed as one
+    CUDA graph for an attention stack (a warm-up step, one capture, a
+    replay for every later step), eager for the others.  Logs the
+    init's seconds, the parameters (leaves), prefill_s,
+    decode_s_per_token and peak memory.  Returns (run, launches, flash
+    routes)."""
+    from repro_torch.models import decode_graph
+    from repro_torch.obs import metrics
+
     args = serve.build_parser().parse_args(argv)
     flash_ops = serve.KERNELS["flash_attention"][1]
     zero_counts(serve)
     flash_ops.route_launches = dict.fromkeys(flash_ops.route_launches, 0)
     torch.cuda.reset_peak_memory_stats()
+    reg = metrics.reset_default_registry()
     out, run = serve.run_lm(args, cfg=cfg)
     launches = kernel_counts(serve)
+    graph = {n: reg.counter(f"decode_graph.{n}").value
+             for n in ("captures", "replays", "eager_steps")}
+    want_graph = ({"captures": 1, "replays": args.gen - 1, "eager_steps": 1}
+                  if decode_graph.graphable(run.model.cfg) and args.gen > 1
+                  else {"captures": 0, "replays": 0, "eager_steps": args.gen})
+    check(graph == want_graph,
+          f"{name}: decode graph counts {graph} != {want_graph}")
     routes = dict(flash_ops.route_launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"{name}:", json.dumps(out))
@@ -2215,7 +2235,7 @@ def drive_lm(serve, transformer, adamw, argv, name, cfg=None):
         f"max_memory_allocated after it {run.init_peak_bytes} bytes; "
         f"prefill_s {out['prefill_s']} decode_s_per_token "
         f"{out['decode_s_per_token']} max_memory_allocated {peak} bytes; "
-        f"flash routes {routes}")
+        f"flash routes {routes}; decode graph {graph}")
     return run, launches, routes
 
 

@@ -27,7 +27,7 @@ from repro_torch.configs.base import (DEFAULT_SWA_WINDOW, ModelConfig,
                                       ShapeConfig)
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, transformer
+from repro_torch.models import decode_graph, encdec, transformer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
@@ -157,17 +157,27 @@ class Model:
         return prefill_step
 
     def make_decode_step(self, window: int = 0):
+        """``decode_step(params, caches, tokens) → (logits [B, Vp],
+        caches)``.  On the card an attention stack's step is replayed
+        as one CUDA graph (:mod:`repro_torch.models.decode_graph`); the
+        graphs belong to this closure, so a new ``make_decode_step()``
+        starts with none."""
         cfg = self.cfg
+
+        def eager_step(params, caches, tokens):
+            if cfg.encoder_layers:
+                cross, self_cache = caches
+                logits, self_cache = encdec.decode_step(
+                    params, cfg, cross, self_cache, tokens)
+                return logits, (cross, self_cache)
+            return transformer.decode_step(params, cfg, caches, tokens,
+                                           window=window)
+
+        graphs = decode_graph.DecodeGraphs(cfg, eager_step)
 
         def decode_step(params, caches, tokens):
             with obs_trace.span("decode_step", "model"):
-                if cfg.encoder_layers:
-                    cross, self_cache = caches
-                    logits, self_cache = encdec.decode_step(
-                        params, cfg, cross, self_cache, tokens)
-                    return logits, (cross, self_cache)
-                return transformer.decode_step(params, cfg, caches, tokens,
-                                               window=window)
+                return graphs(params, caches, tokens)
 
         return decode_step
 

@@ -17,7 +17,10 @@ holds bit for bit to the Theorem 4.1 ledger, so one trace validator
 reads the reference's traces and the port's.  The LM path adds the
 category ``model``: ``prefill_step`` and ``decode_step`` around a
 serving step, ``attention``, ``mlp`` and ``moe_ffn`` inside each
-layer (``models/model.py``, ``models/transformer.py``).
+layer (``models/model.py``, ``models/transformer.py``), and
+``decode_graph`` around a decode step replayed as one CUDA graph
+(``models/decode_graph.py``; a replay runs none of the step's inner
+spans).
 
 Tracing is disabled by default.  :func:`span` and :func:`instant`
 return a preallocated no-op when no recorder is active, so an
